@@ -1,0 +1,229 @@
+"""Keras auto-names, Keras initialisers and the weight bridge from the JAX package.
+
+The JAX package builds its networks as functions of a ``Scope`` tape whose
+auto-namer hands out Keras layer names in call order (``conv2d``,
+``conv2d_1``, ..., ``batch_normalization_3``;
+``building_detection_tpu/core/module.py:97-102``).  Here every layer is an
+``nn.Module`` and the same counter runs while the model is *built*: a
+:class:`Namer` is threaded through the constructors, so each layer records
+the name its JAX counterpart would have had, as long as the modules are
+constructed in the order the JAX function calls its layers.
+
+Every tensor a layer owns is registered under its JAX leaf name
+(``kernel``, ``bias``, ``gamma``, ``moving_mean``, ...), so its flat JAX key
+is ``f"{layer.jax_name}/{leaf}"``.  :func:`load_jax_variables` fills a model
+from the JAX package's flat ``params``/``state`` dicts (as numpy arrays),
+strictly: every JAX key is used once and every port tensor is filled.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+Shape = Tuple[int, ...]
+Init = Callable[[Shape, Optional[torch.Generator]], torch.Tensor]
+
+
+class Namer:
+    """Build-time counterpart of ``Scope.auto_name``: one counter per layer
+    kind, explicit names taking precedence and not counting."""
+
+    def __init__(self):
+        self._counters: Dict[str, int] = {}
+
+    def auto_name(self, kind: str, name: Optional[str] = None) -> str:
+        if name is not None:
+            return name
+        n = self._counters.get(kind, 0)
+        self._counters[kind] = n + 1
+        return kind if n == 0 else f"{kind}_{n}"
+
+
+# -- layouts ----------------------------------------------------------------
+# Axis order taking a JAX array to the port's layout, by rank:
+# * conv HWIO ``(kh, kw, in, out)`` -> OIHW ``(out, in, kh, kw)``;
+# * depthwise ``(kh, kw, 1, C)`` -> ``(C, 1, kh, kw)``;
+# * ConvT ``(kh, kw, out, in)`` -> ``(in, out, kh, kw)``, torch's
+#   ``conv_transpose2d`` weight (the three 4-D cases are one permutation);
+# * dense ``(in, out)`` -> ``(out, in)`` for ``F.linear``.
+_TO_TORCH = {4: (3, 2, 0, 1), 2: (1, 0)}
+_TO_JAX = {4: (2, 3, 1, 0), 2: (1, 0)}
+
+
+def to_torch_layout(a: np.ndarray) -> np.ndarray:
+    """JAX layout -> the port's layout (vectors are unchanged)."""
+    return a.transpose(_TO_TORCH[a.ndim]) if a.ndim in _TO_TORCH else a
+
+
+def to_jax_layout(a: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`to_torch_layout`."""
+    return a.transpose(_TO_JAX[a.ndim]) if a.ndim in _TO_JAX else a
+
+
+# -- Keras initialisers (drawn in the JAX layout) ---------------------------
+def _fans(shape: Shape) -> Tuple[float, float]:
+    """``jax.nn.initializers`` fans: in axis -2, out axis -1, the leading
+    axes are the receptive field."""
+    receptive = math.prod(shape[:-2])
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def he_normal(shape: Shape, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``variance_scaling(2, 'fan_in', 'truncated_normal')``: the normal is
+    cut at two standard deviations and rescaled to keep the variance."""
+    fan_in, _ = _fans(shape)
+    std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+    out = torch.empty(shape)
+    return nn.init.trunc_normal_(out, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def glorot_uniform(shape: Shape, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``variance_scaling(1, 'fan_avg', 'uniform')``."""
+    fan_in, fan_out = _fans(shape)
+    limit = math.sqrt(3.0 / ((fan_in + fan_out) / 2.0))
+    out = torch.empty(shape)
+    return out.uniform_(-limit, limit, generator=generator)
+
+
+def zeros(shape: Shape, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    return torch.zeros(shape)
+
+
+def ones(shape: Shape, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    return torch.ones(shape)
+
+
+class KerasLayer(nn.Module):
+    """A layer whose tensors carry JAX names.
+
+    ``add_param``/``add_state`` register a parameter or a buffer (the BN
+    moving statistics) under its JAX leaf name, shaped for the port's layout
+    and left uninitialised; :func:`init_layers` or :func:`load_jax_variables`
+    fills it.
+    """
+
+    def __init__(self, namer: Namer, kind: str, name: Optional[str]):
+        super().__init__()
+        self.jax_name = namer.auto_name(kind, name)
+        self.inits: Dict[str, Tuple[Shape, Init]] = {}  # leaf -> JAX shape, initialiser
+
+    def add_param(self, leaf: str, jax_shape: Shape, init: Init) -> None:
+        perm = _TO_TORCH.get(len(jax_shape), range(len(jax_shape)))
+        self.register_parameter(leaf, nn.Parameter(torch.empty([jax_shape[i] for i in perm])))
+        self.inits[leaf] = (tuple(jax_shape), init)
+
+    def add_state(self, leaf: str, jax_shape: Shape, init: Init) -> None:
+        self.register_buffer(leaf, torch.empty(jax_shape))
+        self.inits[leaf] = (tuple(jax_shape), init)
+
+    def jax_tensors(self) -> Iterator[Tuple[str, str, torch.Tensor]]:
+        """``(kind, jax key, tensor)`` for every tensor this layer owns;
+        ``kind`` is ``'params'`` or ``'state'``."""
+        for leaf, p in self.named_parameters(recurse=False):
+            yield "params", f"{self.jax_name}/{leaf}", p
+        for leaf, b in self.named_buffers(recurse=False):
+            yield "state", f"{self.jax_name}/{leaf}", b
+
+
+def _keyed(model: nn.Module) -> Dict[str, Dict[str, Tuple[KerasLayer, str, torch.Tensor]]]:
+    """``{'params'|'state': {jax key: (layer, leaf, tensor)}}`` over the
+    model; raises if two tensors claim one key or a tensor has no JAX name."""
+    out: Dict[str, Dict[str, Tuple[KerasLayer, str, torch.Tensor]]] = {
+        "params": {},
+        "state": {},
+    }
+    for layer in model.modules():
+        if not isinstance(layer, KerasLayer):
+            continue
+        for kind, key, t in layer.jax_tensors():
+            if key in out[kind]:
+                raise ValueError(f"two port tensors claim the JAX key {key!r}")
+            out[kind][key] = (layer, key.rsplit("/", 1)[1], t)
+    owned = {id(t) for d in out.values() for _, _, t in d.values()}
+    stray = [
+        n
+        for n, t in list(model.named_parameters()) + list(model.named_buffers())
+        if id(t) not in owned
+    ]
+    if stray:
+        raise ValueError(f"port tensors with no JAX name: {stray[:5]}")
+    return out
+
+
+@torch.no_grad()
+def init_layers(model: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Fill every tensor from its Keras initialiser, drawn in the JAX layout
+    on the CPU with ``generator``.  The numbers differ from JAX's; the
+    distributions do not."""
+    for tensors in _keyed(model).values():
+        for layer, leaf, t in tensors.values():
+            shape, init = layer.inits[leaf]
+            t.copy_(torch.from_numpy(to_torch_layout(init(shape, generator).numpy())))
+    return model
+
+
+@torch.no_grad()
+def load_jax_variables(
+    model: nn.Module,
+    params: Mapping[str, np.ndarray],
+    state: Mapping[str, np.ndarray],
+) -> nn.Module:
+    """Fill ``model`` from the JAX package's flat ``(params, state)`` dicts.
+
+    Strict: the key sets must match exactly (every JAX key is used once and
+    every port tensor is filled), and every shape must agree after the
+    layout transform.  Raises ``ValueError`` naming the first mismatch.
+    """
+    keyed = _keyed(model)
+    for kind, given in (("params", params), ("state", state)):
+        ours = keyed[kind]
+        missing = sorted(set(ours) - set(given))
+        extra = sorted(set(given) - set(ours))
+        if missing or extra:
+            raise ValueError(
+                f"{kind} keys differ: missing {missing[:5]}, unexpected {extra[:5]}"
+            )
+        for key, (_, _, t) in ours.items():
+            value = np.asarray(given[key], np.float32)
+            if kind == "params":
+                value = to_torch_layout(value)
+            if tuple(value.shape) != tuple(t.shape):
+                raise ValueError(
+                    f"{kind} {key}: shape {value.shape} != port {tuple(t.shape)}"
+                )
+            t.copy_(torch.tensor(np.ascontiguousarray(value)))
+    return model
+
+
+def jax_variables(model: nn.Module) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """The model's tensors as the JAX package's flat ``(params, state)``
+    dicts of numpy arrays (inverse of :func:`load_jax_variables`)."""
+    keyed = _keyed(model)
+    params = {
+        k: np.ascontiguousarray(to_jax_layout(t.detach().float().cpu().numpy()))
+        for k, (_, _, t) in keyed["params"].items()
+    }
+    state = {k: t.detach().float().cpu().numpy() for k, (_, _, t) in keyed["state"].items()}
+    return params, state
+
+
+def cast_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast the trainable parameters to ``dtype`` and keep the buffers (BN
+    moving statistics) in f32, as the JAX package keeps its state in the
+    storage dtype while params follow ``compute_dtype``."""
+    for p in model.parameters():
+        p.data = p.data.to(dtype)
+    return model
+
+
+def param_count(model: nn.Module) -> int:
+    """Number of trainable scalars (Keras "Trainable params")."""
+    return sum(p.numel() for p in model.parameters())
+
+
+def state_count(model: nn.Module) -> int:
+    return sum(b.numel() for b in model.buffers())

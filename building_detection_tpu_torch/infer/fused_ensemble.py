@@ -1,0 +1,275 @@
+"""Fused ensemble: the tiles of a scene group are gathered and normalized
+once and run through all five members; each member's argmax bit is ORed
+into one uint8 canvas and the canvas leaves the device as bitplanes.
+
+The counterpart of ``building_detection_tpu/infer/fused_ensemble.py``.
+Same-shape scenes are grouped so that a group's tiles fill ``batch_tiles``;
+the groups are dispatched ahead of the fetch point within a bounded window.
+On a CUDA device each group's scenes go up from pinned host memory on a
+separate upload stream, the compute waits for them on the current stream,
+and the bitplanes come back into pinned memory behind an event, so later
+groups' uploads and launches overlap earlier groups' compute and the host's
+post-processing.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, List, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from building_detection_tpu.core.config import TilerConfig
+from building_detection_tpu_torch.core.module import cast_params
+from building_detection_tpu_torch.ops import tiling as T
+
+# Tiles per dispatch.  Chosen from the batch sweep of ``chip_smoke.py`` on
+# an H100 (PERF.md); the TPU's 128 does not carry over.
+DEFAULT_BATCH_TILES = 32
+
+
+def _pack_bitplanes(canvas: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """(S, H, W) uint8 with one mask bit per member -> (n_bits, S, H,
+    ceil(W/8)) uint8 bitplanes, MSB-first within each byte (``np.unpackbits``
+    order)."""
+    s, h, w = canvas.shape
+    w8 = -(-w // 8) * 8
+    if w8 != w:
+        canvas = torch.nn.functional.pad(canvas, (0, w8 - w))
+    grouped = canvas.reshape(s, h, w8 // 8, 8)
+    planes = []
+    for bit in range(n_bits):
+        plane = (grouped >> bit) & 1
+        packed = torch.zeros(grouped.shape[:-1], dtype=torch.uint8, device=canvas.device)
+        for k in range(8):
+            packed |= plane[..., k] << (7 - k)
+        planes.append(packed)
+    return torch.stack(planes)
+
+
+def _unpack_bitplanes(planes: np.ndarray, width: int) -> np.ndarray:
+    """(n_bits, S, H, W8/8) uint8 -> (n_bits, S, H, width) {0,1} uint8."""
+    return np.unpackbits(planes, axis=-1)[..., :width]
+
+
+class FusedEnsemblePredictor:
+    """All members over shared tiles, one dispatch per scene group.
+
+    ``members`` maps name -> model (``(B, H, W, 3)`` -> ``(B, H, W, 2)``
+    softmax).  The predictor takes ownership: it moves each model to
+    ``device`` and casts its parameters to ``compute_dtype``.
+    """
+
+    # Scene-group sizes: quantizing bounds the shapes a serving batcher
+    # produces (the JAX package compiles one program per size).
+    _GROUP_SIZES = (32, 24, 16, 12, 8, 6, 4, 3, 2, 1)
+
+    def __init__(
+        self,
+        members: Dict[str, nn.Module],
+        cfg: TilerConfig = TilerConfig(),
+        batch_tiles: int = DEFAULT_BATCH_TILES,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        device="cpu",
+    ):
+        self.device = torch.device(device)
+        self.names = list(members)
+        self.models = {
+            n: cast_params(m.to(self.device).eval(), compute_dtype) for n, m in members.items()
+        }
+        self.cfg = cfg
+        self.batch_tiles = batch_tiles
+        self.compute_dtype = compute_dtype
+        self._cuda = self.device.type == "cuda"
+        self._upload = torch.cuda.Stream(self.device) if self._cuda else None
+
+    # -- device work -------------------------------------------------------
+    def member_bits(self, tiles: torch.Tensor) -> torch.Tensor:
+        """(B, tile, tile, 3) normalized tiles -> (B, tile, tile) uint8 with
+        bit ``i`` set where member ``i``'s argmax is class 1 (taken after the
+        softmax: ties resolve to class 0)."""
+        packed = torch.zeros(tiles.shape[:3], dtype=torch.uint8, device=tiles.device)
+        for bit, name in enumerate(self.names):
+            probs = self.models[name](tiles)
+            packed |= (torch.argmax(probs, dim=-1) == 1).to(torch.uint8) << bit
+        return packed
+
+    def _run_group(self, imgs: torch.Tensor, hw: np.ndarray, plan: T.TilePlan) -> torch.Tensor:
+        """Device half of one dispatch: uint8 scenes -> packed bitplanes."""
+        cfg, tile = self.cfg, self.cfg.tile
+        n = imgs.shape[0]
+        norm = T.normalize(imgs, cfg, dtype=self.compute_dtype)
+        # the pad region is 0.0 in normalized space (predict.py:102-104)
+        canvas = norm.new_zeros((n, plan.canvas_h, plan.canvas_w, 3))
+        if cfg.bucket_sizes:  # scenes arrive host-padded: zero past each extent
+            rows = torch.arange(plan.canvas_h, device=self.device)
+            cols = torch.arange(plan.canvas_w, device=self.device)
+            hw_t = self._upload_array(hw)
+            keep = (rows[None, :, None] < hw_t[:, 0, None, None]) & (cols[None, None, :] < hw_t[:, 1, None, None])
+            canvas = torch.where(keep[..., None], norm, canvas)
+        else:
+            canvas[:, : norm.shape[1], : norm.shape[2]] = norm
+        # (scene, row, col) of every tile, scene-major
+        origins = [(s, r, c) for s in range(n) for r, c in plan.origins]
+        idx = self._upload_array(np.array(origins, np.int64))
+        ar = torch.arange(tile, device=self.device)
+        mask_canvas = torch.zeros((n, plan.canvas_h, plan.canvas_w), dtype=torch.uint8, device=self.device)
+        for start in range(0, len(origins), self.batch_tiles):
+            chunk = idx[start : start + self.batch_tiles]
+            tiles = canvas[
+                chunk[:, 0, None, None],
+                (chunk[:, 1, None] + ar)[:, :, None],
+                (chunk[:, 2, None] + ar)[:, None, :],
+            ]
+            packed = self.member_bits(tiles)
+            # per-bit OR over overlapping tiles == the reference's
+            # accumulate-then->=1 per model (predict.py:113-114)
+            for i, (s, r, c) in enumerate(origins[start : start + self.batch_tiles]):
+                mask_canvas[s, r : r + tile, c : c + tile] |= packed[i]
+        if not cfg.bucket_sizes:
+            mask_canvas = mask_canvas[:, : imgs.shape[1], : imgs.shape[2]]
+        return _pack_bitplanes(mask_canvas, len(self.names))
+
+    # -- staging -----------------------------------------------------------
+    def _upload_array(self, a: np.ndarray) -> torch.Tensor:
+        """A small host array on the device without a stream sync: a copy
+        from pageable memory would wait for all work queued before it."""
+        t = torch.from_numpy(a)
+        if not self._cuda:
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _stage(self, images: List[np.ndarray], plan: T.TilePlan) -> Tuple[np.ndarray, np.ndarray]:
+        """Host arrays of one group: the stacked uint8 scenes and their
+        (h, w); with bucketing each scene is padded into the bucket canvas."""
+        n = len(images)
+        hw = np.array([img.shape[:2] for img in images], np.int64)
+        if self.cfg.bucket_sizes:
+            staged = np.zeros((n, plan.canvas_h, plan.canvas_w, 3), np.uint8)
+            for i, img in enumerate(images):
+                staged[i, : img.shape[0], : img.shape[1]] = img
+        else:
+            staged = np.stack(images)
+        return staged, hw
+
+    @torch.inference_mode()
+    def _dispatch(self, images: List[np.ndarray], plan: T.TilePlan):
+        """Enqueue one group; returns what ``_fetch`` needs."""
+        staged, hw = self._stage(images, plan)
+        host = torch.from_numpy(staged)
+        if not self._cuda:
+            return self._run_group(host, hw, plan), None, host
+        host = host.pin_memory()
+        with torch.cuda.stream(self._upload):
+            imgs = host.to(self.device, non_blocking=True)
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_stream(self._upload)
+        imgs.record_stream(compute)
+        planes = self._run_group(imgs, hw, plan)
+        out = torch.empty(planes.shape, dtype=torch.uint8, pin_memory=True)
+        out.copy_(planes, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(compute)
+        return out, done, host  # `host` stays alive until its upload is done
+
+    @staticmethod
+    def _fetch(pending) -> np.ndarray:
+        out, done, _ = pending
+        if done is not None:
+            done.synchronize()
+        return out.numpy()
+
+    # -- host side ---------------------------------------------------------
+    def _group_size(self, num_tiles: int) -> int:
+        """Scenes per dispatch: fill the tile budget with same-shape scenes."""
+        return max(1, self.batch_tiles // max(num_tiles, 1))
+
+    def _split_group(self, count: int, cap: int) -> List[int]:
+        """Split ``count`` same-shape scenes into allowed group sizes <= cap."""
+        out: List[int] = []
+        while count > 0:
+            c = next(g for g in self._GROUP_SIZES if g <= min(count, cap))
+            out.append(c)
+            count -= c
+        return out
+
+    def _plan(self, image_rgb: np.ndarray) -> T.TilePlan:
+        h, w = image_rgb.shape[:2]
+        plan = T.plan_tiles(h, w, self.cfg)
+        if plan.num_tiles and self.cfg.bucket_sizes:
+            plan = T.bucket_plan(plan, self.cfg)
+        return plan
+
+    def _masks_from_planes(self, planes: np.ndarray, sizes) -> list:
+        """Unpack fetched bitplanes into per-scene {0,255} mask dicts."""
+        width = max(w for _, w in sizes)
+        bits = _unpack_bitplanes(planes, min(width, planes.shape[-1] * 8))
+        return [
+            {name: bits[bit, i, :h, :w] * np.uint8(255) for bit, name in enumerate(self.names)}
+            for i, (h, w) in enumerate(sizes)
+        ]
+
+    # -- public API ---------------------------------------------------------
+    def predict_masks(self, image_rgb: np.ndarray) -> Dict[str, np.ndarray]:
+        return self.predict_masks_many([image_rgb])[0]
+
+    def predict_masks_iter(
+        self, images, max_in_flight: int = 8
+    ) -> Iterator[Tuple[int, Dict[str, np.ndarray]]]:
+        """Dispatch ahead, yield ``(index, masks)`` as fetched.
+
+        Up to ``max_in_flight`` groups are enqueued ahead of the fetch point;
+        the bound keeps the queued scenes and outputs from exhausting device
+        memory on large batches.  Yield order is dispatch order, not input
+        order: use the index.  Scenes with no tile come last, blank.
+        """
+        groups: Dict[tuple, list] = {}
+        plans = []
+        for idx, img in enumerate(images):
+            plan = self._plan(img)
+            plans.append(plan)
+            if plan.num_tiles == 0:
+                continue
+            # plan.origins must be in the key: bucketing pads different real
+            # tile grids to one count, and a group runs ONE origin list.
+            key = (plan.canvas_h, plan.canvas_w, plan.origins,
+                   img.shape[:2] if not self.cfg.bucket_sizes else None)
+            groups.setdefault(key, []).append(idx)
+
+        parts = []  # (scene indices, plan) per dispatch
+        for idxs in groups.values():
+            plan = plans[idxs[0]]
+            start = 0
+            for size in self._split_group(len(idxs), self._group_size(plan.num_tiles)):
+                parts.append((idxs[start : start + size], plan))
+                start += size
+        degenerate = [(i, img.shape[:2]) for i, img in enumerate(images) if plans[i].num_tiles == 0]
+
+        def dispatch(part, plan):
+            imgs = [images[i] for i in part]
+            return part, self._dispatch(imgs, plan), [im.shape[:2] for im in imgs]
+
+        max_in_flight = max(1, max_in_flight)
+
+        def run():
+            pending = [dispatch(*p) for p in parts[:max_in_flight]]
+            next_up = max_in_flight
+            while pending:
+                part, handle, sizes = pending.pop(0)
+                if next_up < len(parts):  # keep the window full
+                    pending.append(dispatch(*parts[next_up]))
+                    next_up += 1
+                masks = self._masks_from_planes(self._fetch(handle), sizes)
+                yield from zip(part, masks)
+            for idx, (h, w) in degenerate:
+                zero = np.zeros((h, w), np.uint8)
+                yield idx, {name: zero.copy() for name in self.names}
+
+        return run()
+
+    def predict_masks_many(self, images, max_in_flight: int = 8) -> list:
+        """Pipelined, scene-grouped batch prediction; results in input order."""
+        results: list = [None] * len(images)
+        for idx, masks in self.predict_masks_iter(images, max_in_flight):
+            results[idx] = masks
+        return results

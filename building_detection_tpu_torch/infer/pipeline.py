@@ -1,0 +1,144 @@
+"""Full prediction pipeline: image -> 5 masks -> fused mask -> polygons.
+
+The counterpart of ``building_detection_tpu/infer/pipeline.py``.  The
+device half is :class:`~building_detection_tpu_torch.infer.fused_ensemble.
+FusedEnsemblePredictor`; fusion and polygon extraction are the JAX
+package's host code (``post/fusion.py``, ``post/edges.py``), which imports
+no JAX and is used in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from building_detection_tpu.core.config import Config
+from building_detection_tpu.post import edges as E
+from building_detection_tpu.post import fusion as F
+from building_detection_tpu.utils.profiling import StageTimer
+from building_detection_tpu_torch.core.module import load_jax_variables
+from building_detection_tpu_torch.infer.fused_ensemble import (
+    DEFAULT_BATCH_TILES,
+    FusedEnsemblePredictor,
+)
+from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER, build_model, init_model
+from building_detection_tpu_torch.ops import tiling as T
+from building_detection_tpu_torch.train.checkpoint import load_variables
+
+
+def discover_weights(weights_dir: str) -> Dict[str, str]:
+    """Find per-model checkpoints in a directory: ``{name}.npz``, then
+    ``{name}.h5`` and the reference deployment's own file names
+    (``resnet34.h5`` for res34, ``deep.h5`` for v3plus).  First match wins."""
+    aliases = {"res34": ("res34", "resnet34"), "v3plus": ("v3plus", "deep")}
+    found: Dict[str, str] = {}
+    for name in ENSEMBLE_ORDER:
+        candidates = [f"{name}.npz"]
+        for stem in aliases.get(name, (name,)):
+            candidates += [f"{stem}.h5", f"{stem}.hdf5"]
+        for fname in candidates:
+            path = os.path.join(weights_dir, fname)
+            if os.path.exists(path):
+                found[name] = path
+                break
+    return found
+
+
+@dataclasses.dataclass
+class PredictResult:
+    masks: Dict[str, np.ndarray]  # per-model {0,255} masks
+    fused: np.ndarray             # fused {0,255} mask
+    corners: List[List[list]]     # closed polygon rings [[xs, ys], ...]
+    height: int
+
+
+class Pipeline:
+    """End-to-end detector with the members resident on ``device``.
+
+    ``weights`` maps model name -> ``.npz`` checkpoint in the JAX package's
+    format; members without one get Keras-initialised weights from
+    ``torch.Generator().manual_seed(seed + i)``.
+
+    Not ported yet, and refused with ``NotImplementedError``: ``fused=False``
+    (the per-model engine), scenes over ``max_scene_tiles`` tiles (the
+    blocked large-scene path), ``.h5`` weights and ``int8_pointwise``.
+    """
+
+    def __init__(
+        self,
+        weights: Optional[Dict[str, str]] = None,
+        cfg: Config = Config(),
+        batch_tiles: int = DEFAULT_BATCH_TILES,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        models: tuple = ENSEMBLE_ORDER,
+        seed: int = 0,
+        device="cpu",
+        fused: bool = True,
+        max_scene_tiles: Optional[int] = 1024,
+        int8_pointwise: bool = False,
+    ):
+        if not fused:
+            raise NotImplementedError("fused=False needs the per-model engine (infer/engine.py), not ported yet")
+        if int8_pointwise:
+            raise NotImplementedError("int8 pointwise convs are slice 3 of the port")
+        self.cfg = cfg
+        self.batch_tiles = batch_tiles
+        self.max_scene_tiles = max_scene_tiles
+        weights = weights or {}
+        members = {}
+        for i, name in enumerate(models):
+            path = weights.get(name)
+            if path is None:
+                print(f"[pipeline] no weights for {name!r}: using random init")
+                members[name] = init_model(name, torch.Generator().manual_seed(seed + i))
+            elif path.endswith((".h5", ".hdf5")):
+                raise NotImplementedError(f"{path}: .h5 import comes with slice 2 of the port")
+            else:
+                members[name] = load_jax_variables(build_model(name), *load_variables(path))
+        self.ensemble = FusedEnsemblePredictor(members, cfg.tiler, batch_tiles, compute_dtype, device)
+        self.timer = StageTimer()
+
+    def _check_size(self, image_rgb: np.ndarray) -> None:
+        if self.max_scene_tiles is None:
+            return
+        _, n_h = T._axis_tiles(image_rgb.shape[0], self.cfg.tiler)
+        _, n_w = T._axis_tiles(image_rgb.shape[1], self.cfg.tiler)
+        if not self.cfg.tiler.fix_nonsquare_bug:
+            n_w = n_h
+        if n_h * n_w > self.max_scene_tiles:
+            raise NotImplementedError(
+                f"a {image_rgb.shape[0]}x{image_rgb.shape[1]} scene needs the blocked "
+                "large-scene path (infer/large_scene.py), not ported yet"
+            )
+
+    def _post(self, masks: Dict[str, np.ndarray]) -> PredictResult:
+        # fused in glob (alphabetical) order, as the reference reads them
+        with self.timer.stage("fusion"):
+            fused = F.fuse_masks([masks[k] for k in sorted(masks)], self.cfg.fuse)
+        with self.timer.stage("polygons"):
+            corners, height = E.extract_polygons(fused, self.cfg.edge)
+        return PredictResult(masks, fused, corners, height)
+
+    def predict_image(self, image_rgb: np.ndarray) -> PredictResult:
+        """RGB array in, polygons out; nothing touches the filesystem."""
+        return self.predict_images([image_rgb])[0]
+
+    def predict_images(self, images: List[np.ndarray]) -> List[PredictResult]:
+        """Batch prediction: same-shape scenes share dispatches, and each
+        fetched scene's host post-processing overlaps the remaining groups'
+        device work."""
+        for img in images:
+            self._check_size(img)
+        results: List[Optional[PredictResult]] = [None] * len(images)
+        it = self.ensemble.predict_masks_iter(images)
+        while True:
+            with self.timer.stage("ensemble_forward"):
+                try:
+                    idx, masks = next(it)
+                except StopIteration:
+                    break
+            results[idx] = self._post(masks)
+        return results

@@ -1,0 +1,75 @@
+"""Binary morphology on tensors: flat erosion and dilation with cv2 semantics.
+
+The counterpart of ``building_detection_tpu/ops/morphology.py``.  A flat
+``(kh, kw)`` kernel applied ``n`` times is one pass of width ``n*(k-1)+1``;
+the border contributes the identity (+inf for erosion, -inf for dilation),
+so the image border never erodes inward.  Arrays are ``(..., H, W)`` floats.
+
+:func:`edge_weight_maps` is the training target's edge band; on a CUDA
+tensor it runs the hand-written kernel of
+:mod:`building_detection_tpu_torch.kernels.edge_weights`.  ``fill_holes``
+and ``majority_vote`` are not ported: production uses the host code in
+``building_detection_tpu.post``.
+"""
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+IntPair = Union[int, Tuple[int, int]]
+
+
+def _pair(v: IntPair) -> Tuple[int, int]:
+    if isinstance(v, (tuple, list)):
+        return (int(v[0]), int(v[1]))
+    return (int(v), int(v))
+
+
+def _effective_kernel(kernel: IntPair, iterations: int) -> Tuple[int, int]:
+    kh, kw = _pair(kernel)
+    return (iterations * (kh - 1) + 1, iterations * (kw - 1) + 1)
+
+
+def _window_max(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """Centred ``(kh, kw)`` max filter over the last two axes, -inf outside
+    (the first ``(k - 1) // 2`` of the window before the pixel)."""
+    if not x.dtype.is_floating_point:
+        raise TypeError(f"morphology takes floating tensors, got {x.dtype}")
+    lead, (h, w) = x.shape[:-2], x.shape[-2:]
+    y = x.reshape(-1, 1, h, w)
+    pad = ((kw - 1) // 2, kw - 1 - (kw - 1) // 2, (kh - 1) // 2, kh - 1 - (kh - 1) // 2)
+    y = F.max_pool2d(F.pad(y, pad, value=float("-inf")), (kh, kw), stride=1)
+    return y.reshape(*lead, h, w)
+
+
+def erode(x: torch.Tensor, kernel: IntPair, iterations: int = 1) -> torch.Tensor:
+    """Min filter == ``cv2.erode(x, np.ones(kernel), iterations=n)``."""
+    return -_window_max(-x, *_effective_kernel(kernel, iterations))
+
+
+def dilate(x: torch.Tensor, kernel: IntPair, iterations: int = 1) -> torch.Tensor:
+    """Max filter == ``cv2.dilate(x, np.ones(kernel), iterations=n)``."""
+    return _window_max(x, *_effective_kernel(kernel, iterations))
+
+
+def edge_weight_maps(
+    label: torch.Tensor,
+    kernel: int = 3,
+    iterations: int = 5,
+    weight: float = 2.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Edge-band weights for the edge focal loss, ``(f_edge, p_edge)``.
+
+    The inner band (``label - erode == 1``) and the outer band (``dilate -
+    label == 1``) of a {0,1} label get ``weight``, everything else 1.0.
+    ``label`` is ``(..., H, W)``; it is computed as f32 ``(N, H, W)``.
+    """
+    from building_detection_tpu_torch.kernels import edge_weights as K
+
+    label = label.to(torch.float32)
+    shape = label.shape
+    flat = label.reshape(-1, *shape[-2:]).contiguous()
+    f_edge, p_edge = K.edge_weight_maps(flat, kernel, iterations, weight)
+    return f_edge.reshape(shape), p_edge.reshape(shape)

@@ -1,0 +1,119 @@
+"""PyTorch port on a CUDA card: the edge-weight kernel against its plain twin,
+``normalize``, and the fused predictor on the card against the CPU.
+
+Every test here needs a card (marker ``cuda``) and skips without one.  The
+file imports no JAX, so it also runs on a machine with the card and no JAX;
+there the suite's ``conftest.py`` (which imports JAX) is left out:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+The tiny members and scenes below are shared with ``test_torch_pipeline.py``.
+"""
+import numpy as np
+import pytest
+import torch
+from torch import nn
+
+from building_detection_tpu.core.config import TilerConfig
+from building_detection_tpu_torch.core.module import Namer, load_jax_variables
+from building_detection_tpu_torch.infer.fused_ensemble import FusedEnsemblePredictor
+from building_detection_tpu_torch.kernels import edge_weights as K
+from building_detection_tpu_torch.nn import layers as L
+from building_detection_tpu_torch.ops import tiling as T
+
+torch.set_num_threads(2)
+
+NAMES = ["m0", "m1", "m2", "m3", "m4"]
+
+
+class TinyMember(nn.Module):
+    """Two convs; with :func:`tiny_variables` its class 1 follows brightness."""
+
+    def __init__(self):
+        super().__init__()
+        n = Namer()
+        self.conv1 = L.Conv2d(n, 3, 4, 3, activation="relu")
+        self.conv2 = L.Conv2d(n, 4, 2, 1, activation="softmax")
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
+
+
+def tiny_variables(i):
+    """JAX-format weights: centre tap ~ mean brightness, class 1 where it is
+    high, per-member noise from the seed.  The logit margins are wide, so
+    the argmax does not hang on rounding."""
+    rng = np.random.RandomState(50 + i)
+    k1 = 0.05 * rng.standard_normal((3, 3, 3, 4))
+    k1[1, 1] += 1.0 / 3.0
+    k2 = 0.2 * rng.standard_normal((1, 1, 4, 2))
+    k2[0, 0, :, 1] += 2.0
+    k2[0, 0, :, 0] -= 2.0
+    b2 = np.array([0.6, -0.6]) + 0.1 * rng.standard_normal(2)
+    params = {"conv2d/kernel": k1, "conv2d/bias": np.zeros(4), "conv2d_1/kernel": k2, "conv2d_1/bias": b2}
+    return {k: v.astype(np.float32) for k, v in params.items()}, {}
+
+
+def tiny_members():
+    return {n: load_jax_variables(TinyMember().eval(), *tiny_variables(i)) for i, n in enumerate(NAMES)}
+
+
+def scenes(seed, shapes):
+    """Bright rectangles on a darker noisy ground."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for h, w in shapes:
+        img = rng.randint(0, 90, (h, w, 3)).astype(np.uint8)
+        for _ in range(3):
+            y, x = rng.randint(0, max(h - 40, 1)), rng.randint(0, max(w - 40, 1))
+            img[y : y + rng.randint(35, 70), x : x + rng.randint(35, 70)] = rng.randint(150, 256, 3)
+        out.append(img)
+    return out
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,args",
+    [((8, 512, 512), ()), ((3, 77, 131), (2, 4, 3.0)), ((2, 40, 33), (5, 2, 1.5)), ((1, 1, 1), ())],
+    ids=["train_shape", "odd_even_kernel", "kernel5", "one_pixel"],
+)
+def test_kernel_bit_equal_to_plain(cuda, shape, args):
+    lab = torch.from_numpy(np.random.RandomState(2).rand(*shape) < 0.3).float().to(cuda)
+    before = K.edge_weight_maps.launches
+    got = K.edge_weight_maps(lab, *args)
+    want = K.edge_weight_maps_plain(lab, *args)
+    torch.cuda.synchronize()
+    assert K.edge_weight_maps.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_normalize_bit_exact_on_card(cuda):
+    v = np.arange(256, dtype=np.uint8)
+    want = (v.astype(np.float64) / 127.5 - 1.0).astype(np.float32)
+    got = T.normalize(torch.from_numpy(v).to(cuda)).cpu().numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_fused_predictor_on_card_matches_cpu(cuda):
+    cfg = TilerConfig(tile=64, stride=48, overlap=16)
+    imgs = scenes(6, [(200, 260), (200, 260), (150, 140), (10, 12)])
+    want = FusedEnsemblePredictor(tiny_members(), cfg, 4, torch.float32, "cpu").predict_masks_many(imgs)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = FusedEnsemblePredictor(tiny_members(), cfg, 4, torch.float32, cuda).predict_masks_many(imgs, max_in_flight=2)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for g, w in zip(got, want):
+        for name in NAMES:
+            np.testing.assert_array_equal(g[name], w[name])
