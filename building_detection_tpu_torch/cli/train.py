@@ -1,0 +1,153 @@
+"""Training CLI of the port: ``bdt-train`` on one device.
+
+    python -m building_detection_tpu_torch.cli.train res34 \\
+        --train-images data/train/img --train-labels data/train/lab \\
+        --checkpoint-dir weights1 --device cuda
+
+The flags are ``building_detection_tpu/cli/train.py``'s, with ``--device``
+added.  A dataset that fits the host budget is decoded up front and handed
+to :meth:`Trainer.fit_arrays` (staged on the device when it fits there);
+a larger one streams from disk through :meth:`Trainer.fit`.  The
+multi-process flags and ``--data-parallel`` above 1 are refused until the
+port trains on several devices.
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import re
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="bdt-train", description="Train one zoo model with the reference recipe (PyTorch port)."
+    )
+    p.add_argument("model", choices=["res34", "hrnet", "v3plus", "scse", "bam"])
+    p.add_argument("--train-images", required=True)
+    p.add_argument("--train-labels", required=True)
+    p.add_argument("--val-images")
+    p.add_argument("--val-labels")
+    p.add_argument("--checkpoint-dir", default="weights1")
+    p.add_argument("--resume", help="checkpoint to resume from (exact, incl. optimizer)")
+    p.add_argument(
+        "--init-weights",
+        help="weights-only init (.npz) for transfer learning; optimizer, schedule and step "
+        "start fresh (use --resume for exact resume)",
+    )
+    p.add_argument(
+        "--auto-resume", action="store_true",
+        help="resume from the newest epoch_N_weights.npz in --checkpoint-dir",
+    )
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--warmup-epochs", type=int, default=3)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--image-size", type=int, default=512)
+    p.add_argument(
+        "--loss", choices=["edge_focal_loss", "focal_loss", "binary_crossentropy"], default="edge_focal_loss"
+    )
+    p.add_argument("--augment-seed", type=int, help="enable on-device augmentation")
+    p.add_argument(
+        "--shuffle", action="store_true",
+        help="shuffle the dataset (opt-in; the reference cycles sorted file order)",
+    )
+    p.add_argument("--shuffle-seed", type=int, default=0)
+    p.add_argument("--precision", choices=["bf16", "f32"], default="bf16", help="compute dtype of the step")
+    p.add_argument("--device", default="cuda", help="torch device to train on (no fallback)")
+    p.add_argument("--data-parallel", type=int, default=-1, help="devices on the data axis (1 here)")
+    p.add_argument("--coordinator", help="multi-process training: not ported yet")
+    p.add_argument("--num-processes", type=int)
+    p.add_argument("--process-id", type=int)
+    return p
+
+
+def newest_checkpoint(checkpoint_dir: str):
+    """The ``epoch_N_weights.npz`` with the largest N, or None."""
+    candidates = glob.glob(os.path.join(checkpoint_dir, "epoch_*_weights.npz"))
+    if not candidates:
+        return None
+    return max(candidates, key=lambda p: int(re.search(r"epoch_(\d+)_", p).group(1)))
+
+
+def decode_all(pairs, image_size: int):
+    import numpy as np
+
+    from building_detection_tpu.data.dataset import decode_pair
+
+    decoded = [decode_pair(ip, lp, image_size) for ip, lp in pairs]
+    return np.stack([d[0] for d in decoded]), np.stack([d[1] for d in decoded])
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.coordinator or args.num_processes is not None or args.process_id is not None:
+        raise NotImplementedError("multi-process training is slice 3 of the port")
+    if args.data_parallel not in (-1, 1):
+        raise NotImplementedError("data-parallel training over several devices is slice 3 of the port")
+
+    import torch
+
+    from building_detection_tpu.core.config import TrainConfig
+    from building_detection_tpu.data.dataset import batch_iterator, list_pairs, prefetch
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    cfg = TrainConfig(
+        batch_size=args.batch_size,
+        epochs=args.epochs,
+        warmup_epochs=args.warmup_epochs,
+        lr_base=args.lr,
+        loss=args.loss,
+        image_size=args.image_size,
+    )
+    train_pairs = list_pairs(args.train_images, args.train_labels)
+    print(f"training samples: {len(train_pairs)}")
+    trainer = Trainer(
+        args.model,
+        cfg,
+        steps_per_epoch=max(len(train_pairs) // cfg.batch_size, 1),
+        compute_dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
+        augment=args.augment_seed is not None,
+        augment_seed=args.augment_seed or 0,
+        device=args.device,
+    )
+    resume_path = args.resume
+    if args.auto_resume and not resume_path:
+        resume_path = newest_checkpoint(args.checkpoint_dir)
+    if resume_path and args.init_weights:
+        raise SystemExit("--init-weights conflicts with --resume/--auto-resume: exact resume already restores the weights")
+    if resume_path:
+        trainer.restore(resume_path)
+        print(f"resumed from {resume_path} at step {trainer.step}")
+    elif args.init_weights:
+        trainer.load_weights(args.init_weights)
+        print(f"initialised weights from {args.init_weights} (fresh optimizer)")
+
+    val_pairs = list_pairs(args.val_images, args.val_labels) if args.val_images and args.val_labels else []
+    if val_pairs:
+        print(f"validation samples: {len(val_pairs)}")
+    # Host memory ceiling for decoding the whole dataset up front; past it,
+    # stream from disk per step.  BDT_HOST_DECODE_BUDGET overrides (bytes).
+    host_budget = int(os.environ.get("BDT_HOST_DECODE_BUDGET", 16 << 30))
+    if len(train_pairs) * (cfg.image_size ** 2) * 4 <= host_budget:
+        images, labels = decode_all(train_pairs, cfg.image_size)
+        val_images, val_labels = decode_all(val_pairs, cfg.image_size) if val_pairs else (None, None)
+        trainer.fit_arrays(
+            images, labels, val_images, val_labels, checkpoint_dir=args.checkpoint_dir,
+            shuffle=args.shuffle, shuffle_seed=args.shuffle_seed,
+        )
+        return 0
+
+    train_iter = prefetch(batch_iterator(
+        train_pairs, cfg.batch_size, cfg.image_size, shuffle=args.shuffle, seed=args.shuffle_seed
+    ))
+    val_iter, val_steps = None, 0
+    if val_pairs:
+        val_iter = batch_iterator(val_pairs, cfg.batch_size, cfg.image_size)
+        val_steps = max(len(val_pairs) // cfg.batch_size, 1)
+    trainer.fit(train_iter, val_iter, val_steps, checkpoint_dir=args.checkpoint_dir)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -104,7 +104,15 @@ class KerasLayer(nn.Module):
     moving statistics) under its JAX leaf name, shaped for the port's layout
     and left uninitialised; :func:`init_layers` or :func:`load_jax_variables`
     fills it.
+
+    ``compute_dtype`` (set by :func:`set_compute_dtype`) is the dtype the
+    layer computes in: :meth:`cast` converts each parameter to it where it
+    is used, as the JAX ``Scope.param`` does, so the stored parameters stay
+    f32 and their gradients land there.  ``None`` computes in the
+    parameters' own dtype (serving, after :func:`cast_params`).
     """
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, namer: Namer, kind: str, name: Optional[str]):
         super().__init__()
@@ -119,6 +127,12 @@ class KerasLayer(nn.Module):
     def add_state(self, leaf: str, jax_shape: Shape, init: Init) -> None:
         self.register_buffer(leaf, torch.empty(jax_shape))
         self.inits[leaf] = (tuple(jax_shape), init)
+
+    def cast(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """``t`` in the layer's compute dtype (``None`` passes through)."""
+        if t is None or self.compute_dtype is None:
+            return t
+        return t.to(self.compute_dtype)
 
     def jax_tensors(self) -> Iterator[Tuple[str, str, torch.Tensor]]:
         """``(kind, jax key, tensor)`` for every tensor this layer owns;
@@ -199,6 +213,12 @@ def load_jax_variables(
     return model
 
 
+def jax_params(model: nn.Module) -> Dict[str, nn.Parameter]:
+    """The model's trainable parameters keyed by their JAX names, in the
+    port's layouts (the optimizer's view of the model)."""
+    return {k: t for k, (_, _, t) in _keyed(model)["params"].items()}
+
+
 def jax_variables(model: nn.Module) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
     """The model's tensors as the JAX package's flat ``(params, state)``
     dicts of numpy arrays (inverse of :func:`load_jax_variables`)."""
@@ -214,9 +234,20 @@ def jax_variables(model: nn.Module) -> Tuple[Dict[str, np.ndarray], Dict[str, np
 def cast_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast the trainable parameters to ``dtype`` and keep the buffers (BN
     moving statistics) in f32, as the JAX package keeps its state in the
-    storage dtype while params follow ``compute_dtype``."""
+    storage dtype while params follow ``compute_dtype``.  For serving only:
+    training keeps f32 params (:func:`set_compute_dtype`)."""
     for p in model.parameters():
         p.data = p.data.to(dtype)
+    return model
+
+
+def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
+    """Make every layer compute in ``dtype`` from its f32 params, cast per
+    use (the JAX package's ``apply(..., compute_dtype=)``, its training
+    form); ``None`` restores computing in the params' own dtype."""
+    for layer in model.modules():
+        if isinstance(layer, KerasLayer):
+            layer.compute_dtype = dtype
     return model
 
 

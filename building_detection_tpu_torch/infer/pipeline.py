@@ -95,9 +95,10 @@ class Pipeline:
                 print(f"[pipeline] no weights for {name!r}: using random init")
                 members[name] = init_model(name, torch.Generator().manual_seed(seed + i))
             elif path.endswith((".h5", ".hdf5")):
-                raise NotImplementedError(f"{path}: .h5 import comes with slice 2 of the port")
+                raise NotImplementedError(f"{path}: .h5 import is not ported; convert it to .npz with bdt-convert")
             else:
-                members[name] = load_jax_variables(build_model(name), *load_variables(path))
+                params, state, *_ = load_variables(path)
+                members[name] = load_jax_variables(build_model(name), params, state)
         self.ensemble = FusedEnsemblePredictor(members, cfg.tiler, batch_tiles, compute_dtype, device)
         self.timer = StageTimer()
 

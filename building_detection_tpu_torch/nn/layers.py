@@ -14,11 +14,12 @@ package, which follows Keras:
 * :class:`Conv2dTranspose` is ``Conv2DTranspose(padding='same')``: torch's
   full transposed convolution, cropped to ``input * stride`` on the side
   ``lax.conv_transpose``'s SAME padding drops;
-* :class:`BatchNorm` is the inference form with Keras' epsilon 1e-3,
-  ``(x - mean) * (rsqrt(var + eps) * gamma) + beta``; the train-mode form
-  comes with the trainer;
-* a layer casts its input to its parameters' dtype, as the JAX layers cast
-  to ``compute_dtype``; BN statistics stay f32 (:func:`core.module.cast_params`).
+* :class:`BatchNorm` is ``(x - mean) * (rsqrt(var + eps) * gamma) + beta``
+  with Keras' epsilon 1e-3: the moving statistics in eval mode, the batch
+  statistics in train mode, which also updates the moving ones;
+* a layer casts its parameters to its compute dtype where it uses them and
+  its input to the same dtype, as the JAX layers cast to ``compute_dtype``
+  (:meth:`core.module.KerasLayer.cast`); BN statistics stay f32.
 
 The int8 pointwise branch of the JAX package is not ported yet.
 """
@@ -121,8 +122,8 @@ class Conv2d(KerasLayer):
             self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.kernel.dtype)
-        y = _conv_nhwc(x, self.kernel, self.bias, self.strides, self.padding, self.dilation)
+        w = self.cast(self.kernel)
+        y = _conv_nhwc(x.to(w.dtype), w, self.cast(self.bias), self.strides, self.padding, self.dilation)
         return _activate(y, self.activation)
 
 
@@ -155,12 +156,12 @@ class SeparableConv2d(KerasLayer):
             self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.depthwise_kernel.dtype)
+        dw = self.cast(self.depthwise_kernel)
         y = _conv_nhwc(
-            x, self.depthwise_kernel, None, self.strides, self.padding,
+            x.to(dw.dtype), dw, None, self.strides, self.padding,
             self.dilation, groups=x.shape[-1],
         )
-        y = _conv_nhwc(y, self.pointwise_kernel, self.bias, (1, 1), "VALID", (1, 1))
+        y = _conv_nhwc(y, self.cast(self.pointwise_kernel), self.cast(self.bias), (1, 1), "VALID", (1, 1))
         return _activate(y, self.activation)
 
 
@@ -203,10 +204,11 @@ class Conv2dTranspose(KerasLayer):
             self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.kernel.dtype)
-        (sh, sw), (kh, kw) = self.strides, self.kernel.shape[2:]
+        kernel = self.cast(self.kernel)
+        x = x.to(kernel.dtype)
+        (sh, sw), (kh, kw) = self.strides, kernel.shape[2:]
         h, w = x.shape[1], x.shape[2]
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.kernel, self.bias, (sh, sw))
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), kernel, self.cast(self.bias), (sh, sw))
         top, left = _transpose_same_start(kh, sh), _transpose_same_start(kw, sw)
         y = y[:, :, top : top + h * sh, left : left + w * sw]
         return _activate(y.permute(0, 2, 3, 1), self.activation)
@@ -235,31 +237,54 @@ class Dense(KerasLayer):
             self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.kernel.dtype)
-        return _activate(F.linear(x, self.kernel, self.bias), self.activation)
+        w = self.cast(self.kernel)
+        return _activate(F.linear(x.to(w.dtype), w, self.cast(self.bias)), self.activation)
 
 
 class BatchNorm(KerasLayer):
-    """``keras.layers.BatchNormalization`` over the last axis, inference
-    form: moving statistics, epsilon 1e-3."""
+    """``keras.layers.BatchNormalization`` over the last axis, epsilon 1e-3.
 
-    def __init__(self, namer: Namer, ch: int, epsilon: float = 1e-3, name: Optional[str] = None):
+    Eval mode normalises with the moving statistics.  Train mode (the JAX
+    ``batch_norm`` under ``s.train``) normalises with the batch mean and the
+    biased batch variance, taken in f32 over every axis but the last, and
+    updates the buffers Keras' way, ``moving * 0.99 + batch * 0.01``.  The
+    moving variance takes the Bessel factor ``n / (n - 1)`` only for 4-D
+    inputs: Keras' fused 4-D path reports the unbiased variance, its 2-D
+    path (the SE and BAM gates' ``(B, C)`` inputs) the biased one.
+    ``F.batch_norm`` always applies the factor, so it is not used here.
+    """
+
+    def __init__(
+        self,
+        namer: Namer,
+        ch: int,
+        momentum: float = 0.99,
+        epsilon: float = 1e-3,
+        name: Optional[str] = None,
+    ):
         super().__init__(namer, "batch_normalization", name)
-        self.epsilon = epsilon
+        self.momentum, self.epsilon = momentum, epsilon
         self.add_param("gamma", (ch,), ones)
         self.add_param("beta", (ch,), zeros)
         self.add_state("moving_mean", (ch,), zeros)
         self.add_state("moving_variance", (ch,), ones)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gamma = self.cast(self.gamma)
+        x = x.to(gamma.dtype)
         if self.training:
-            raise NotImplementedError(
-                "train-mode batch norm comes with the trainer (slice 2); call .eval()"
-            )
-        x = x.to(self.gamma.dtype)
-        mean = self.moving_mean.to(x.dtype)
-        inv = torch.rsqrt(self.moving_variance + self.epsilon).to(x.dtype) * self.gamma
-        return (x - mean) * inv + self.beta
+            axes = tuple(range(x.dim() - 1))
+            var, mean = torch.var_mean(x.float(), dim=axes, correction=0)
+            n = x.numel() // x.shape[-1]
+            bessel = n / (n - 1) if x.dim() == 4 and n > 1 else 1.0
+            with torch.no_grad():
+                m = self.momentum
+                self.moving_mean.copy_(self.moving_mean * m + mean * (1.0 - m))
+                self.moving_variance.copy_(self.moving_variance * m + (var * bessel) * (1.0 - m))
+        else:
+            mean, var = self.moving_mean, self.moving_variance
+        inv = torch.rsqrt(var + self.epsilon).to(x.dtype) * gamma
+        return (x - mean.to(x.dtype)) * inv + self.cast(self.beta)
 
 
 def max_pool(

@@ -1,0 +1,47 @@
+"""Epoch callbacks for :meth:`Trainer.fit` and :meth:`Trainer.fit_arrays`.
+
+The counterpart of ``building_detection_tpu/train/callbacks.py``, whose
+``EpochVisualizer`` runs the JAX model and so cannot serve the port.
+:class:`EpochVisualizer` here runs the trainer's torch model;
+``EarlyStopping`` holds no model and is the JAX package's own.  A callback
+is ``cb(trainer, epoch, metrics) -> bool``; True stops training.
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import numpy as np
+import torch
+
+from building_detection_tpu.train.callbacks import EarlyStopping  # noqa: F401  (re-exported)
+from building_detection_tpu_torch.ops import tiling as T
+
+
+class EpochVisualizer:
+    """The reference's ``Display`` callback: after each epoch, predict one
+    validation image and write input | label | prediction side by side as
+    ``epoch_{N}_display.png`` in ``out_dir``."""
+
+    def __init__(self, image_u8: np.ndarray, label_u8: np.ndarray, out_dir: str):
+        """``image_u8`` (H, W, 3), ``label_u8`` (H, W) in {0, 255}."""
+        self.image = image_u8
+        self.label = label_u8
+        self.out_dir = out_dir
+        os.makedirs(out_dir, exist_ok=True)
+
+    def __call__(self, trainer, epoch: int, metrics: Dict[str, float]) -> bool:
+        from building_detection_tpu.utils import io as uio  # PIL: only when an image is written
+
+        x = T.normalize(torch.from_numpy(self.image[None]).to(trainer.device), dtype=trainer.compute_dtype)
+        trainer.model.eval()
+        with torch.no_grad():
+            probs = trainer.model(x).float()
+        pred = (probs[0].argmax(-1).cpu().numpy() * 255).astype(np.uint8)
+        h, w = self.label.shape
+        canvas = np.zeros((h, w * 3 + 16, 3), np.uint8)
+        canvas[:, :w] = self.image
+        canvas[:, w + 8 : 2 * w + 8] = self.label[..., None]
+        canvas[:, 2 * w + 16 :] = pred[..., None]
+        uio.imwrite(os.path.join(self.out_dir, f"epoch_{epoch + 1}_display.png"), canvas)
+        return False

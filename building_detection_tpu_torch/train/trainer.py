@@ -1,14 +1,58 @@
-"""Training targets.  The counterpart of ``make_targets`` in
-``building_detection_tpu/train/trainer.py``; the rest of the trainer is not
-ported yet."""
+"""Training engine on one device: the counterpart of ``building_detection_tpu/train/trainer.py``.
+
+The reference harness (batch 8, 30 epochs, 3 warmup epochs, lr 1e-3 from
+1e-5, ``edge_focal_loss``, PA/IoU/MIoU/F1) with the JAX package's changes
+kept:
+
+* the training targets, the edge-weight bands included, are made from the
+  raw uint8 labels inside every step on the step's device
+  (:func:`make_targets`; on a card it launches the hand-written kernel of
+  ``csrc/edge_weights.cu``);
+* the warmup-cosine schedule is a function of the step, evaluated by Keras
+  Adam at the update count before the increment (:mod:`train.optim`);
+* augmentation runs on the step's device from decisions keyed on the
+  global step (:mod:`data.augment`);
+* checkpoints carry params, BN state, optimizer state and step in the JAX
+  package's ``.npz`` format, so resume is exact and either package restores
+  the other's.
+
+Params stay f32; ``compute_dtype`` is what the layers compute in (each
+param is cast where it is used, so gradients land on the f32 params).
+:meth:`Trainer.train_on_batch` and :meth:`Trainer.train_epoch_staged` run
+one step body, so on one device the two paths give the same bits.
+
+Not ported yet, and refused with ``NotImplementedError``: ``mesh``, ``tp``
+and ``remat`` (multi-device and rematerialised training), ``.h5`` weights.
+"""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import json
+import os
+import re
+import time
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
-from building_detection_tpu.core.config import TrainConfig
+from building_detection_tpu.core.config import AugmentConfig, TrainConfig
+from building_detection_tpu_torch.core.module import (
+    init_layers,
+    jax_params,
+    jax_variables,
+    load_jax_variables,
+    set_compute_dtype,
+)
+from building_detection_tpu_torch.data.augment import augment_batch
+from building_detection_tpu_torch.data.prefetch import device_prefetch
+from building_detection_tpu_torch.models.registry import build_model
+from building_detection_tpu_torch.ops import tiling as T
 from building_detection_tpu_torch.ops.morphology import edge_weight_maps
+from building_detection_tpu_torch.train import checkpoint as ckpt
+from building_detection_tpu_torch.train.losses import LOSSES
+from building_detection_tpu_torch.train.metrics import all_metrics
+from building_detection_tpu_torch.train.optim import KerasAdam
+from building_detection_tpu_torch.train.schedule import warmup_cosine
 
 
 def make_targets(
@@ -28,3 +72,350 @@ def make_targets(
         one_hot = torch.where(one_hot == 1.0, pos, neg)
     f_edge, p_edge = edge_weight_maps(label, cfg.edge_kernel, cfg.edge_iterations, cfg.edge_weight)
     return torch.cat([one_hot, f_edge[..., None], p_edge[..., None]], dim=-1)
+
+
+Metrics = Dict[str, torch.Tensor]
+
+
+class Trainer:
+    """One model trained on one ``device`` (``'cpu'``, ``'cuda'``, ...).
+
+    ``model_name`` is a registry name or a callable returning a model built
+    from the port's layers (its weights are drawn with
+    ``torch.Generator().manual_seed(seed)``).  There is no fallback: asking
+    for a card that is not there raises.  ``augment`` is ``True`` or an
+    ``AugmentConfig``.
+    """
+
+    def __init__(
+        self,
+        model_name: Union[str, Callable[[], torch.nn.Module]],
+        cfg: TrainConfig = TrainConfig(),
+        steps_per_epoch: int = 100,
+        mesh=None,
+        compute_dtype: torch.dtype = torch.float32,
+        seed: int = 0,
+        remat: bool = False,
+        augment=None,
+        augment_seed: int = 0,
+        tp: bool = False,
+        device: Union[str, torch.device] = "cpu",
+    ):
+        if mesh is not None or tp:
+            raise NotImplementedError("multi-device and tensor-parallel training are slice 3 of the port")
+        if remat:
+            raise NotImplementedError("remat (rematerialised stages) is not ported")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device} asked for, but torch sees no CUDA card")
+        if isinstance(model_name, str):
+            self.model_name, model = model_name, build_model(model_name)
+        else:
+            self.model_name, model = getattr(model_name, "__name__", "custom"), model_name()
+        init_layers(model, torch.Generator().manual_seed(seed))
+        self.model = set_compute_dtype(model.to(self.device), compute_dtype)
+        self.cfg = cfg
+        self.steps_per_epoch = steps_per_epoch
+        self.compute_dtype = compute_dtype
+        self.schedule = warmup_cosine(
+            learning_rate_base=cfg.lr_base,
+            total_steps=cfg.epochs * steps_per_epoch,
+            warmup_learning_rate=cfg.warmup_lr,
+            warmup_steps=cfg.warmup_epochs * steps_per_epoch,
+            min_learn_rate=cfg.min_lr,
+        )
+        self.optimizer = KerasAdam(jax_params(self.model), self.schedule, eps=1e-7)
+        self.loss_fn = LOSSES[cfg.loss]
+        self.augment_cfg = AugmentConfig() if augment is True else (augment or None)
+        self.augment_seed = augment_seed
+        self.step = 0
+        self.history: list = []
+
+    # -- the step -------------------------------------------------------------
+    def _to_device(self, a) -> torch.Tensor:
+        t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+        return t.to(self.device)
+
+    def _train_step(self, images_u8: torch.Tensor, labels_u8: torch.Tensor, step: int) -> Metrics:
+        """The one step body of both paths: augment, normalise, targets,
+        forward in train mode, loss, gradients, Keras Adam; the metrics are
+        of the forward before the update."""
+        cfg = self.cfg
+        if self.augment_cfg is not None:
+            images_u8, labels_u8 = augment_batch(images_u8, labels_u8, self.augment_seed, step, self.augment_cfg)
+        x = T.normalize(images_u8, dtype=self.compute_dtype)
+        y_true = make_targets(labels_u8, cfg, cfg.label_smooth)
+        self.model.train()
+        probs = self.model(x).float()
+        loss = self.loss_fn(y_true, probs)
+        params = self.optimizer.params
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True, materialize_grads=True)
+        self.optimizer.step(dict(zip(params, grads)))
+        with torch.no_grad():
+            metrics = all_metrics(y_true, probs)
+        metrics["loss"] = loss.detach()
+        return metrics
+
+    def train_on_batch(self, images_u8, labels_u8, fetch_metrics: bool = True):
+        """One optimizer step on one ``(B, H, W, 3)``/``(B, H, W)`` uint8
+        batch (host arrays or tensors; a staged ``(1, B, ...)`` pair is
+        taken too).  ``fetch_metrics=False`` returns the metrics as 0-d
+        device tensors without waiting for the device."""
+        images, labels = self._to_device(images_u8), self._to_device(labels_u8)
+        if images.dim() == 5:
+            if images.shape[0] != 1:
+                raise ValueError(
+                    f"train_on_batch takes ONE batch (got a staged array of {images.shape[0]} "
+                    "steps — use train_epoch_staged)"
+                )
+            images, labels = images[0], labels[0]
+        metrics = self._train_step(images, labels, self.step)
+        self.step += 1
+        if fetch_metrics:
+            return {k: float(v) for k, v in metrics.items()}
+        return metrics
+
+    @torch.no_grad()
+    def eval_on_batch(self, images_u8, labels_u8) -> Dict[str, float]:
+        """Metrics and loss of the eval-mode model (moving BN statistics)."""
+        x = T.normalize(self._to_device(images_u8), dtype=self.compute_dtype)
+        y_true = make_targets(self._to_device(labels_u8), self.cfg, self.cfg.label_smooth)
+        self.model.eval()
+        probs = self.model(x).float()
+        metrics = all_metrics(y_true, probs)
+        metrics["loss"] = self.loss_fn(y_true, probs)
+        return {k: float(v) for k, v in metrics.items()}
+
+    def current_lr(self) -> float:
+        return self.schedule(self.step)
+
+    # -- staged (device-resident) epochs --------------------------------------
+    def stage_dataset(self, images_u8, labels_u8) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Upload a dataset once as ``(steps, batch, ...)`` device tensors,
+        dropping the tail that does not fill a batch."""
+        b = self.cfg.batch_size
+        steps = len(images_u8) // b
+        if steps == 0:
+            raise ValueError(f"need at least one batch of {b} images")
+        n = steps * b
+        imgs = np.asarray(images_u8[:n]).reshape((steps, b) + tuple(images_u8.shape[1:]))
+        labs = np.asarray(labels_u8[:n]).reshape((steps, b) + tuple(labels_u8.shape[1:]))
+        return self._to_device(imgs), self._to_device(labs)
+
+    def train_epoch_staged(self, images_dev, labels_dev, fetch_metrics: bool = True, order=None):
+        """One epoch over staged batches; ``order`` (a permutation of
+        ``range(steps)``) is the batch visit order, while the step counter
+        (schedule, augment key) advances in sequence.  Returns the per-step
+        metrics stacked, as numpy arrays when ``fetch_metrics``."""
+        n = int(images_dev.shape[0])
+        if order is None:
+            order = np.arange(n, dtype=np.int32)
+        else:
+            order = np.asarray(order, np.int32)
+            if order.shape != (n,) or not np.array_equal(np.sort(order), np.arange(n, dtype=np.int32)):
+                raise ValueError(f"order must be a permutation of range({n}), got shape {order.shape}")
+        steps = [
+            self._train_step(images_dev[int(idx)], labels_dev[int(idx)], self.step + i)
+            for i, idx in enumerate(order)
+        ]
+        self.step += n
+        metrics = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        if fetch_metrics:
+            return {k: v.cpu().numpy() for k, v in metrics.items()}
+        return metrics
+
+    # -- fit loops --------------------------------------------------------------
+    def _device_bytes_free(self) -> Optional[int]:
+        """Free bytes on the card (``torch.cuda.mem_get_info``); ``None`` on
+        the CPU, where the dataset is assumed to fit."""
+        if self.device.type != "cuda":
+            return None
+        return int(torch.cuda.mem_get_info(self.device)[0])
+
+    def should_stage(self, images_u8, labels_u8, headroom: float = 0.6, extra_arrays=()) -> bool:
+        """Does the dataset (with ``extra_arrays``, e.g. the validation set)
+        fit ``headroom`` of the free device memory, leaving the rest to the
+        step?"""
+        need = np.asarray(images_u8).nbytes + np.asarray(labels_u8).nbytes
+        need += sum(np.asarray(a).nbytes for a in extra_arrays if a is not None)
+        free = self._device_bytes_free()
+        return True if free is None else need <= headroom * free
+
+    def _end_epoch(self, epoch: int, agg: Dict[str, float], t0: float, checkpoint_dir, log_fn, callbacks) -> bool:
+        agg["lr"] = self.current_lr()
+        agg["epoch_seconds"] = time.time() - t0
+        self.history.append(agg)
+        log_fn(f"epoch {epoch + 1}/{self.cfg.epochs} " + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
+        if checkpoint_dir:
+            self.save(os.path.join(checkpoint_dir, f"epoch_{epoch + 1}_weights.npz"))
+            self._write_history(checkpoint_dir)
+        return bool(callbacks) and any(cb(self, epoch, agg) for cb in list(callbacks))
+
+    def fit_arrays(
+        self,
+        images_u8,
+        labels_u8,
+        val_images=None,
+        val_labels=None,
+        checkpoint_dir: Optional[str] = None,
+        log_fn: Callable[[str], None] = print,
+        callbacks: Optional[list] = None,
+        stage: str = "auto",
+        shuffle: bool = False,
+        shuffle_seed: int = 0,
+    ) -> list:
+        """Train on an in-memory uint8 dataset.  ``stage='auto'`` stages it
+        on the device when it fits (:meth:`should_stage`) and streams it per
+        step otherwise; both give the same numbers.  ``shuffle=True``
+        permutes the samples once (seeded), then the batch order every epoch
+        (staged) or the samples every pass (streamed), keyed by
+        ``(shuffle_seed, epoch index)`` so a resumed run replays the orders;
+        validation stays in order."""
+        cfg = self.cfg
+        if shuffle:
+            perm = np.random.RandomState(shuffle_seed).permutation(len(images_u8))
+            images_u8, labels_u8 = np.asarray(images_u8)[perm], np.asarray(labels_u8)[perm]
+        self.steps_per_epoch = max(len(images_u8) // cfg.batch_size, 1)
+        if stage == "auto":
+            use_staged = self.should_stage(images_u8, labels_u8, extra_arrays=(val_images, val_labels))
+        else:
+            use_staged = {"staged": True, "stream": False}[stage]
+
+        if not use_staged:
+            def cycle(images, labels, do_shuffle=False):
+                b = cfg.batch_size
+                steps = max(len(images) // b, 1)
+                n_pass = self.step // steps  # resume continues the sequence
+                while True:
+                    if do_shuffle:
+                        p = np.random.RandomState(shuffle_seed + 1 + n_pass).permutation(len(images))
+                        images_p, labels_p = np.asarray(images)[p], np.asarray(labels)[p]
+                    else:
+                        images_p, labels_p = images, labels
+                    n_pass += 1
+                    for i in range(steps):
+                        yield images_p[i * b : (i + 1) * b], labels_p[i * b : (i + 1) * b]
+
+            val_iter, val_steps = None, 0
+            if val_images is not None:
+                val_iter = cycle(val_images, val_labels)
+                val_steps = max(len(val_images) // cfg.batch_size, 1)
+            log_fn("fit_arrays: dataset exceeds the device memory budget, streaming per step")
+            return self.fit(
+                cycle(images_u8, labels_u8, do_shuffle=shuffle), val_iter, val_steps,
+                checkpoint_dir=checkpoint_dir, log_fn=log_fn, callbacks=callbacks,
+            )
+
+        imgs_dev, labs_dev = self.stage_dataset(images_u8, labels_u8)
+        steps = int(imgs_dev.shape[0])
+        log_fn(f"fit_arrays: staged {steps} steps x batch {cfg.batch_size} on {self.device}")
+        val_dev = []
+        if val_images is not None:
+            b = cfg.batch_size
+            val_dev = [
+                (self._to_device(val_images[i * b : (i + 1) * b]), self._to_device(val_labels[i * b : (i + 1) * b]))
+                for i in range(max(len(val_images) // b, 1))
+            ]
+        for epoch in range(cfg.epochs):
+            t0 = time.time()
+            order = None
+            if shuffle:
+                epoch_idx = self.step // steps
+                order = np.random.RandomState(shuffle_seed + 1 + epoch_idx).permutation(steps).astype(np.int32)
+            metrics = self.train_epoch_staged(imgs_dev, labs_dev, order=order)
+            # a sequential f64 sum, the streamed loop's arithmetic
+            agg = {k: sum(float(x) for x in np.asarray(v).ravel()) / len(v) for k, v in metrics.items()}
+            if val_dev:
+                vagg: Dict[str, float] = {}
+                for vb in val_dev:
+                    for k, v in self.eval_on_batch(*vb).items():
+                        vagg[k] = vagg.get(k, 0.0) + v
+                agg.update({f"val_{k}": v / len(val_dev) for k, v in vagg.items()})
+            if self._end_epoch(epoch, agg, t0, checkpoint_dir, log_fn, callbacks):
+                break
+        return self.history
+
+    def fit(
+        self,
+        train_iter: Iterator[Tuple[np.ndarray, np.ndarray]],
+        val_iter: Optional[Iterator[Tuple[np.ndarray, np.ndarray]]] = None,
+        val_steps: int = 0,
+        checkpoint_dir: Optional[str] = None,
+        log_fn: Callable[[str], None] = print,
+        callbacks: Optional[list] = None,
+    ) -> list:
+        """Epoch loop over a host batch iterator, ``steps_per_epoch`` steps
+        an epoch, a checkpoint per epoch.  Uploads run ahead on a side
+        stream (:func:`data.prefetch.device_prefetch`) and the step metrics
+        stay on the device until the epoch ends.  ``callbacks`` are
+        ``cb(trainer, epoch, metrics) -> stop``."""
+        train_iter = device_prefetch(train_iter, self.device)
+        for epoch in range(self.cfg.epochs):
+            t0 = time.time()
+            steps = [self.train_on_batch(*next(train_iter), fetch_metrics=False)
+                     for _ in range(self.steps_per_epoch)]
+            agg: Dict[str, float] = {}
+            for k in steps[0]:
+                for v in torch.stack([m[k] for m in steps]).tolist():  # one wait per epoch
+                    agg[k] = agg.get(k, 0.0) + v
+            agg = {k: v / self.steps_per_epoch for k, v in agg.items()}
+            if val_iter is not None and val_steps:
+                vagg: Dict[str, float] = {}
+                for _ in range(val_steps):
+                    for k, v in self.eval_on_batch(*next(val_iter)).items():
+                        vagg[k] = vagg.get(k, 0.0) + v
+                agg.update({f"val_{k}": v / val_steps for k, v in vagg.items()})
+            if self._end_epoch(epoch, agg, t0, checkpoint_dir, log_fn, callbacks):
+                break
+        return self.history
+
+    def _write_history(self, checkpoint_dir: str) -> None:
+        """The fit history as ``history.json`` beside the checkpoints,
+        written atomically."""
+        tmp = os.path.join(checkpoint_dir, ".history.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(self.history, f, indent=1)
+        os.replace(tmp, os.path.join(checkpoint_dir, "history.json"))
+
+    # -- checkpoints -------------------------------------------------------------
+    def save(self, path: str) -> None:
+        params, state = jax_variables(self.model)
+        ckpt.save_variables(
+            path, params, state, self.optimizer.jax_state(), self.step, metadata={"model": self.model_name}
+        )
+
+    def _place_weights(self, path: str, params, state) -> None:
+        ckpt.check_matches_model(path, params, state, *jax_variables(self.model), self.model_name)
+        load_jax_variables(self.model, params, state)
+
+    def load_weights(self, path: str) -> None:
+        """Weights-only initialisation (transfer learning): params and BN
+        state from an ``.npz`` checkpoint; optimizer, schedule and step stay
+        fresh.  Use :meth:`restore` for an exact resume."""
+        if path.endswith((".h5", ".hdf5")):
+            raise NotImplementedError(f"{path}: .h5 import is not ported; convert it to .npz with bdt-convert")
+        params, state, *_ = ckpt.load_variables(path)
+        self._place_weights(path, params, state)
+
+    def restore(self, path: str) -> None:
+        """Exact resume: params, BN state, optimizer state and step, and the
+        fit history of ``history.json`` beside the checkpoint, cut to the
+        epochs the checkpoint had completed (its ``epoch_N`` file name, or
+        ``step // steps_per_epoch``)."""
+        params, state, opt, step, _ = ckpt.load_variables(path)
+        self._place_weights(path, params, state)
+        if opt:
+            self.optimizer.load_jax_state(opt)
+        self.step = step
+        hist_path = os.path.join(os.path.dirname(path) or ".", "history.json")
+        if os.path.exists(hist_path):
+            with open(hist_path) as f:
+                hist = json.load(f)
+            m = re.search(r"epoch_(\d+)_weights", os.path.basename(path))
+            if m:
+                done = int(m.group(1))
+            elif self.steps_per_epoch:
+                done = step // self.steps_per_epoch
+            else:
+                done = len(hist)
+            self.history = hist[:done]

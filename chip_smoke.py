@@ -7,18 +7,26 @@ Usage, from the root of a checkout, with one card visible:
 
 It builds the port's hand-written kernel from ``building_detection_tpu_torch/csrc``
 with ``nvcc``, checks it against its plain PyTorch twin on the card, and drives
-the port's main path at full width: the five-member ensemble through
-``Pipeline.predict_images`` on 512x512 tiles in bf16 (random weights from a
-seed), and the training targets through ``make_targets``, whose edge-band
-maps run the kernel.  It imports nothing of JAX.  Any failed check exits
-non-zero before the result lines.  The second-to-last line is a JSON object
-with each kernel's launches on the main path, its error against the twin and
-both times; the last line is ``{"ok": true, "device": {...}}``.
+the port's two paths at full width, random weights from a seed:
+
+* serving: the five-member ensemble through ``Pipeline.predict_images`` on
+  512x512 tiles in bf16, and ``make_targets``;
+* training: ``Trainer(device="cuda")`` steps for each of the five members on
+  512x512 tiles at batch 8, in f32 and bf16, with ``make_targets`` (and so
+  the kernel) inside every step; one f32 step per member held against the
+  same step on the CPU; save/restore and the staged epoch held against the
+  per-step path.
+
+It imports nothing of JAX.  Any failed check exits non-zero before the
+result lines.  The second-to-last line is a JSON object with each kernel's
+launches on the two paths, its error against the twin and both times; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -29,6 +37,17 @@ SEED = 0
 SWEEP = (8, 16, 32, 64)           # batch_tiles values timed on the ensemble forward
 PARITY_ATOL = 1e-3                # f32 card vs CPU, ~100 layers summed in other orders
 EDGE_SHAPE = (8, 512, 512)        # the trainer's label batch
+TRAIN_STEPS = 5                   # full-width steps per member and dtype, on one fixed batch
+TRAIN_PARITY_PX = 64              # the card-vs-CPU train step: 64 px, batch 2
+# Tolerances of that step, card vs CPU, f32 with TF32 off.  The loss is one
+# forward, summed in other orders.  Params: the step runs at the warmup lr
+# 1e-5, and Keras Adam moves a weight by at most about lr whatever its
+# gradient, so even a gradient of opposite sign moves it < 3e-5 apart.  BN
+# moving statistics after one step: 0.01 x the batch statistics of identical
+# weights, relative to the largest.
+TRAIN_LOSS_ATOL = 1e-4
+TRAIN_PARAM_ATOL = 3e-5
+TRAIN_STATE_RTOL, TRAIN_STATE_ATOL = 1e-4, 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -205,7 +224,7 @@ def check_results(imgs, results, names):
 
 
 def phase_main_path(pipe):
-    """The counted run: the port's entry points, once each, on the card."""
+    """The counted serving run: the port's entry points, once each, on the card."""
     import torch
 
     from building_detection_tpu.core.config import TrainConfig
@@ -295,6 +314,149 @@ def phase_serving(pipe):
     say("serve", "DetectionService.handle_photo answered 3 PNG requests with status success")
 
 
+def train_batch(seed: int, n: int, px: int):
+    """A learnable uint8 batch: dark noisy ground, bright blobs where the
+    label is 255 (numpy only)."""
+    import numpy as np
+
+    lab = labels_np(seed, (n, px, px)) > 0
+    rng = np.random.RandomState(seed)
+    img = rng.randint(0, 90, (n, px, px, 3))
+    img[lab] += rng.randint(100, 166, (int(lab.sum()), 3))
+    return img.astype(np.uint8), (lab * 255).astype(np.uint8)
+
+
+def phase_train_parity():
+    """One f32 Trainer step per member, card vs CPU, same seeded weights and batch."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu.core.config import TrainConfig
+    from building_detection_tpu_torch.core.module import jax_variables
+    from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    cfg = TrainConfig(batch_size=2, image_size=TRAIN_PARITY_PX, epochs=1, warmup_epochs=1)
+    imgs, labs = train_batch(SEED + 4, 2, TRAIN_PARITY_PX)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for i, name in enumerate(ENSEMBLE_ORDER):
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                tr = Trainer(name, cfg, steps_per_epoch=3, seed=SEED + i, device=dev)
+                loss = tr.train_on_batch(imgs, labs)["loss"]
+                runs[dev] = (loss, *jax_variables(tr.model))
+            (lc, pc, sc), (lh, ph, sh) = runs["cuda"], runs["cpu"]
+            check(np.isfinite(lc), f"{name}: non-finite train loss on the card")
+            dp = max(float(np.abs(pc[k] - ph[k]).max()) for k in ph)
+            ds = max((float(np.abs(sc[k] - sh[k]).max()) - TRAIN_STATE_RTOL * float(np.abs(sh[k]).max())
+                      for k in sh), default=0.0)
+            say("train-parity", f"{name}: loss card {lc:.7f} cpu {lh:.7f} (|d| {abs(lc - lh):.2e}, atol "
+                                f"{TRAIN_LOSS_ATOL}); params max |d| {dp:.2e} (atol {TRAIN_PARAM_ATOL}); BN stats "
+                                f"max |d| beyond {TRAIN_STATE_RTOL} x scale {ds:.2e} (atol {TRAIN_STATE_ATOL})")
+            check(abs(lc - lh) <= TRAIN_LOSS_ATOL, f"{name}: train loss card vs CPU differs by {abs(lc - lh)}")
+            check(dp <= TRAIN_PARAM_ATOL, f"{name}: params after one step differ by {dp}")
+            check(ds <= TRAIN_STATE_ATOL, f"{name}: BN moving statistics after one step differ")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def phase_train_full():
+    """The counted training run: each member at 512x512, batch 8, on the card,
+    TRAIN_STEPS steps on one fixed batch, f32 and bf16."""
+    import torch
+
+    from building_detection_tpu.core.config import TrainConfig
+    from building_detection_tpu_torch.kernels import edge_weights as K
+    from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    cfg = TrainConfig(warmup_epochs=0)
+    imgs, labs = train_batch(SEED + 5, cfg.batch_size, cfg.image_size)
+    K.edge_weight_maps.launches = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, name in enumerate(ENSEMBLE_ORDER):
+            tr = Trainer(name, cfg, seed=SEED + i, compute_dtype=dtype, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = K.edge_weight_maps.launches
+            losses, times = [], []
+            for _ in range(TRAIN_STEPS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                metrics = tr.train_on_batch(imgs, labs)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+                losses.append(metrics["loss"])
+            launched = K.edge_weight_maps.launches - before
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            ms = statistics.median(times[1:])
+            tag = f"{name} {str(dtype).replace('torch.', '')}"
+            say("train", f"{tag}: losses {' '.join(f'{v:.4f}' for v in losses)}; {ms:.1f} ms/step "
+                         f"(median of steps 2-{TRAIN_STEPS}; first {times[0]:.1f}), "
+                         f"{cfg.batch_size / (ms / 1000.0):.2f} images/s, peak {peak:.2f} GiB, kernel launches {launched}")
+            check(all(math.isfinite(v) for v in losses), f"{tag}: non-finite loss")
+            check(losses[-1] < losses[0], f"{tag}: loss did not fall over {TRAIN_STEPS} steps on one batch")
+            check(launched == TRAIN_STEPS, f"{tag}: {launched} edge-kernel launches in {TRAIN_STEPS} steps")
+            del tr
+            torch.cuda.empty_cache()
+    return K.edge_weight_maps.launches
+
+
+def phase_train_resume_and_staged():
+    """res34 at full width, f32, deterministic cuDNN: save -> restore gives the
+    uninterrupted run's next loss, and a staged 2-step epoch equals two
+    train_on_batch calls, bit for bit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from building_detection_tpu.core.config import TrainConfig
+    from building_detection_tpu_torch.core.module import jax_variables
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    cfg = TrainConfig(warmup_epochs=0)
+    b = cfg.batch_size
+    imgs, labs = train_batch(SEED + 6, 2 * b, cfg.image_size)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+            path = os.path.join(root, "step1.npz")
+            a = Trainer("res34", cfg, seed=SEED, device="cuda")
+            a.train_on_batch(imgs[:b], labs[:b])
+            a.save(path)
+            want = a.train_on_batch(imgs[b:], labs[b:])["loss"]
+            fresh = Trainer("res34", cfg, seed=SEED + 9, device="cuda")
+            fresh.restore(path)
+            check(fresh.step == 1, f"restored step {fresh.step}, saved 1")
+            got = fresh.train_on_batch(imgs[b:], labs[b:])["loss"]
+            say("train-ckpt", f"res34: next loss after restore {got!r}, uninterrupted {want!r}")
+            check(got == want, "restore did not reproduce the uninterrupted run's next loss")
+            del a, fresh
+        loop = Trainer("res34", cfg, seed=SEED, device="cuda")
+        loop_losses = [loop.train_on_batch(imgs[i * b:(i + 1) * b], labs[i * b:(i + 1) * b])["loss"]
+                       for i in range(2)]
+        staged = Trainer("res34", cfg, seed=SEED, device="cuda")
+        metrics = staged.train_epoch_staged(*staged.stage_dataset(imgs, labs))
+        pl, ps = jax_variables(loop.model)
+        pst, sst = jax_variables(staged.model)
+        dp = max(float(np.abs(pl[k] - pst[k]).max()) for k in pl)
+        say("train-staged", f"res34: staged losses {metrics['loss'].tolist()}, per-step {loop_losses}; "
+                            f"params max |d| {dp:.3e}")
+        check(metrics["loss"].tolist() == loop_losses, "staged epoch losses differ from train_on_batch")
+        check(dp == 0.0 and all(np.array_equal(ps[k], sst[k]) for k in ps),
+              "staged epoch params/BN state differ from train_on_batch")
+        del loop, staged
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -312,7 +474,14 @@ def main() -> int:
     launches = phase_main_path(pipe)
     phase_serving(pipe)
     phase_sweep(pipe)
-    say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    del pipe
+    torch.cuda.empty_cache()
+    phase_train_parity()
+    train_launches = phase_train_full()
+    launches["edge_weight_maps"] += train_launches
+    phase_train_resume_and_staged()
+    say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; edge-kernel launches: serving path "
+                f"{launches['edge_weight_maps'] - train_launches}, training path {train_launches}")
     kernels = [{
         "name": "edge_weight_maps",
         "route": "cuda",

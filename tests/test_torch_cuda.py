@@ -1,5 +1,6 @@
 """PyTorch port on a CUDA card: the edge-weight kernel against its plain twin,
-``normalize``, and the fused predictor on the card against the CPU.
+``normalize``, the fused predictor on the card against the CPU, and a
+full-width ``Trainer`` step, which launches the kernel once.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports no JAX, so it also runs on a machine with the card and no JAX;
@@ -14,12 +15,13 @@ import pytest
 import torch
 from torch import nn
 
-from building_detection_tpu.core.config import TilerConfig
+from building_detection_tpu.core.config import TilerConfig, TrainConfig
 from building_detection_tpu_torch.core.module import Namer, load_jax_variables
 from building_detection_tpu_torch.infer.fused_ensemble import FusedEnsemblePredictor
 from building_detection_tpu_torch.kernels import edge_weights as K
 from building_detection_tpu_torch.nn import layers as L
 from building_detection_tpu_torch.ops import tiling as T
+from building_detection_tpu_torch.train.trainer import Trainer
 
 torch.set_num_threads(2)
 
@@ -117,3 +119,19 @@ def test_fused_predictor_on_card_matches_cpu(cuda):
     for g, w in zip(got, want):
         for name in NAMES:
             np.testing.assert_array_equal(g[name], w[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_full_width_train_step_on_card(cuda, dtype):
+    """res34 at 512x512, batch 8: finite loss, f32 params on the card, one
+    edge-kernel launch per step."""
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (8, 512, 512, 3)).astype(np.uint8)
+    labs = np.where(rng.rand(8, 512, 512) < 0.3, 255, 0).astype(np.uint8)
+    tr = Trainer("res34", TrainConfig(warmup_epochs=0), compute_dtype=dtype, device=cuda)
+    before = K.edge_weight_maps.launches
+    losses = [tr.train_on_batch(imgs, labs)["loss"] for _ in range(2)]
+    assert K.edge_weight_maps.launches == before + 2
+    assert all(np.isfinite(losses))
+    assert all(p.dtype == torch.float32 and p.is_cuda for p in tr.model.parameters())

@@ -121,9 +121,20 @@ def test_batch_norm_inference(shape):
 
 
 def test_batch_norm_refuses_train_mode():
-    bn = L.BatchNorm(Namer(), 3)
-    with pytest.raises(NotImplementedError):
-        bn(torch.zeros(2, 3))
+    """Train mode is no longer refused: it normalises with the batch's own
+    statistics and moves the buffers (held against JAX in
+    test_torch_train.py), while eval mode keeps the moving ones."""
+    params = {"batch_normalization/gamma": np.ones(3, np.float32), "batch_normalization/beta": np.zeros(3, np.float32)}
+    state = {"batch_normalization/moving_mean": np.zeros(3, np.float32),
+             "batch_normalization/moving_variance": np.ones(3, np.float32)}
+    bn = load_jax_variables(L.BatchNorm(Namer(), 3), params, state)
+    x = torch.from_numpy(np.random.RandomState(0).standard_normal((16, 3)).astype(np.float32) * 3 + 2)
+    np.testing.assert_allclose(bn.eval()(x).detach().numpy(), x.numpy() / np.sqrt(1.001), rtol=1e-6)
+    y = bn.train()(x)
+    np.testing.assert_allclose(y.mean(0).detach().numpy(), 0.0, atol=1e-5)
+    var = x.var(0, unbiased=False)
+    np.testing.assert_allclose(y.var(0, unbiased=False).detach().numpy(), (var / (var + 1e-3)).numpy(), rtol=1e-5)
+    np.testing.assert_allclose(bn.moving_mean.numpy(), 0.01 * x.mean(0).numpy(), rtol=1e-5)
 
 
 POOL_CASES = {

@@ -1,7 +1,8 @@
 """The PyTorch port runs without JAX, PIL and OpenCV: the machine with the
 card has none of them.  In a subprocess that blocks those imports, every
-module of the port imports, and ``make_targets`` and a ``Pipeline`` over a
-tiny member run end to end on the CPU."""
+module of the port imports, and ``make_targets``, a ``Pipeline`` over a
+tiny member and a ``Trainer`` (augmented steps, the staged epoch, save and
+restore) run end to end on the CPU."""
 import os
 import subprocess
 import sys
@@ -48,6 +49,32 @@ SCRIPT = textwrap.dedent(
     img = np.random.RandomState(0).randint(0, 256, (70, 100, 3), np.uint8)
     (res,) = pipe.predict_images([img])
     assert res.masks["m0"].shape == (70, 100) and res.fused.shape == (70, 100)
+
+    import os, tempfile
+    from building_detection_tpu.core.config import TrainConfig
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    class Tiny(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            n = Namer()
+            self.conv, self.bn = L.Conv2d(n, 3, 4, 3), L.BatchNorm(n, 4)
+            self.out = L.Conv2d(n, 4, 2, 1, activation="softmax")
+
+        def forward(self, x):
+            return self.out(L.relu(self.bn(self.conv(x))))
+
+    cfg = TrainConfig(batch_size=2, image_size=16, epochs=1, warmup_epochs=0)
+    tr = Trainer(Tiny, cfg, steps_per_epoch=2, augment=True)
+    imgs = np.random.RandomState(1).randint(0, 256, (4, 16, 16, 3), np.uint8)
+    labs = np.where(np.random.RandomState(2).rand(4, 16, 16) < 0.4, 255, 0).astype(np.uint8)
+    hist = tr.fit_arrays(imgs, labs, log_fn=lambda s: None)
+    assert len(hist) == 1 and np.isfinite(hist[0]["loss"]) and tr.step == 2
+    with tempfile.TemporaryDirectory() as d:
+        tr.save(os.path.join(d, "t.npz"))
+        again = Trainer(Tiny, cfg, steps_per_epoch=2, augment=True, seed=1)
+        again.restore(os.path.join(d, "t.npz"))
+        assert again.step == 2 and again.optimizer.count == 2
     for mod in ("jax", "PIL", "cv2"):
         assert sys.modules[mod] is None, mod
     assert "building_detection_tpu.utils.io" not in sys.modules
