@@ -37,8 +37,8 @@ def main(argv=None) -> int:
 
     import torch
 
-    from building_detection_tpu.core.config import TrainConfig
-    from building_detection_tpu.data.dataset import batch_iterator, list_pairs
+    from building_detection_tpu_torch.core.config import TrainConfig
+    from building_detection_tpu_torch.data.dataset import batch_iterator, list_pairs
     from building_detection_tpu_torch.train.trainer import Trainer
 
     pairs = list_pairs(args.images, args.labels)

@@ -73,7 +73,7 @@ def newest_checkpoint(checkpoint_dir: str):
 def decode_all(pairs, image_size: int):
     import numpy as np
 
-    from building_detection_tpu.data.dataset import decode_pair
+    from building_detection_tpu_torch.data.dataset import decode_pair
 
     decoded = [decode_pair(ip, lp, image_size) for ip, lp in pairs]
     return np.stack([d[0] for d in decoded]), np.stack([d[1] for d in decoded])
@@ -88,8 +88,8 @@ def main(argv=None) -> int:
 
     import torch
 
-    from building_detection_tpu.core.config import TrainConfig
-    from building_detection_tpu.data.dataset import batch_iterator, list_pairs, prefetch
+    from building_detection_tpu_torch.core.config import TrainConfig
+    from building_detection_tpu_torch.data.dataset import batch_iterator, list_pairs, prefetch
     from building_detection_tpu_torch.train.trainer import Trainer
 
     cfg = TrainConfig(

@@ -23,7 +23,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from building_detection_tpu.core.config import AugmentConfig
+from building_detection_tpu_torch.core.config import AugmentConfig
 
 
 class Decisions(NamedTuple):

@@ -2,8 +2,8 @@
 
 The counterpart of ``building_detection_tpu/data/dataset.py::device_prefetch``,
 which reaches JAX through ``parallel.mesh`` and so cannot be imported where
-the port runs.  A background thread (the JAX package's ``_threaded_pipe``,
-which imports no JAX) copies each ``(images, labels)`` host batch into
+the port runs.  A background thread (:func:`data.dataset._threaded_pipe`)
+copies each ``(images, labels)`` host batch into
 pinned memory and uploads it on a side CUDA stream, ``depth`` batches
 ahead, so batch N+1's transfer overlaps batch N's step.  The consumer's
 stream waits on each upload's event before the tensors are used, and the
@@ -17,7 +17,7 @@ from typing import Iterator, Tuple, Union
 import numpy as np
 import torch
 
-from building_detection_tpu.data.dataset import _threaded_pipe
+from building_detection_tpu_torch.data.dataset import _threaded_pipe
 
 Batch = Tuple[torch.Tensor, torch.Tensor]
 

@@ -19,7 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from building_detection_tpu.core.config import TilerConfig
+from building_detection_tpu_torch.core.config import TilerConfig
+from building_detection_tpu_torch.core.device import check_device
 from building_detection_tpu_torch.core.module import cast_params
 from building_detection_tpu_torch.ops import tiling as T
 
@@ -57,7 +58,8 @@ class FusedEnsemblePredictor:
 
     ``members`` maps name -> model (``(B, H, W, 3)`` -> ``(B, H, W, 2)``
     softmax).  The predictor takes ownership: it moves each model to
-    ``device`` and casts its parameters to ``compute_dtype``.
+    ``device`` (the card by default; a card that is not there raises) and
+    casts its parameters to ``compute_dtype``.
     """
 
     # Scene-group sizes: quantizing bounds the shapes a serving batcher
@@ -70,9 +72,10 @@ class FusedEnsemblePredictor:
         cfg: TilerConfig = TilerConfig(),
         batch_tiles: int = DEFAULT_BATCH_TILES,
         compute_dtype: torch.dtype = torch.bfloat16,
-        device="cpu",
+        device="cuda",
     ):
         self.device = torch.device(device)
+        check_device(self.device)
         self.names = list(members)
         self.models = {
             n: cast_params(m.to(self.device).eval(), compute_dtype) for n, m in members.items()

@@ -2,9 +2,9 @@
 
 The counterpart of ``building_detection_tpu/infer/pipeline.py``.  The
 device half is :class:`~building_detection_tpu_torch.infer.fused_ensemble.
-FusedEnsemblePredictor`; fusion and polygon extraction are the JAX
-package's host code (``post/fusion.py``, ``post/edges.py``), which imports
-no JAX and is used in place.
+FusedEnsemblePredictor`; fusion and polygon extraction are the port's own
+copies of the JAX package's host code (``post/fusion.py``,
+``post/edges.py``).
 """
 from __future__ import annotations
 
@@ -15,10 +15,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from building_detection_tpu.core.config import Config
-from building_detection_tpu.post import edges as E
-from building_detection_tpu.post import fusion as F
-from building_detection_tpu.utils.profiling import StageTimer
+from building_detection_tpu_torch.core.config import Config
+from building_detection_tpu_torch.core.device import check_device
 from building_detection_tpu_torch.core.module import load_jax_variables
 from building_detection_tpu_torch.infer.fused_ensemble import (
     DEFAULT_BATCH_TILES,
@@ -26,7 +24,10 @@ from building_detection_tpu_torch.infer.fused_ensemble import (
 )
 from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER, build_model, init_model
 from building_detection_tpu_torch.ops import tiling as T
+from building_detection_tpu_torch.post import edges as E
+from building_detection_tpu_torch.post import fusion as F
 from building_detection_tpu_torch.train.checkpoint import load_variables
+from building_detection_tpu_torch.utils.profiling import StageTimer
 
 
 def discover_weights(weights_dir: str) -> Dict[str, str]:
@@ -56,7 +57,9 @@ class PredictResult:
 
 
 class Pipeline:
-    """End-to-end detector with the members resident on ``device``.
+    """End-to-end detector with the members resident on ``device``: the
+    card by default, and a CUDA device that is not there raises (nothing
+    falls back to the CPU; pass ``device="cpu"`` to run there).
 
     ``weights`` maps model name -> ``.npz`` checkpoint in the JAX package's
     format; members without one get Keras-initialised weights from
@@ -75,7 +78,7 @@ class Pipeline:
         compute_dtype: torch.dtype = torch.bfloat16,
         models: tuple = ENSEMBLE_ORDER,
         seed: int = 0,
-        device="cpu",
+        device="cuda",
         fused: bool = True,
         max_scene_tiles: Optional[int] = 1024,
         int8_pointwise: bool = False,
@@ -84,6 +87,8 @@ class Pipeline:
             raise NotImplementedError("fused=False needs the per-model engine (infer/engine.py), not ported yet")
         if int8_pointwise:
             raise NotImplementedError("int8 pointwise convs are slice 3 of the port")
+        device = torch.device(device)
+        check_device(device)
         self.cfg = cfg
         self.batch_tiles = batch_tiles
         self.max_scene_tiles = max_scene_tiles

@@ -4,7 +4,8 @@ Replaces ``building_detection_tpu/kernels/pallas_morphology.py::
 edge_weight_maps_pallas``.  :func:`edge_weight_maps` takes an ``(N, H, W)``
 f32 contiguous label: on a CUDA tensor it launches the kernel of
 ``csrc/edge_weights.cu`` (bound by device memory: 4 bytes read and 8
-written per pixel; see the source note), on a CPU tensor it runs
+written per pixel; row strips, register taps and 16-byte accesses, see the
+source note), on a CPU tensor it runs
 :func:`edge_weight_maps_plain`, the ±inf-padded ``max_pool2d`` version the
 tests and ``chip_smoke.py`` hold the kernel against.  There is no fallback
 from one to the other.
@@ -35,7 +36,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-MAX_WINDOW = 33  # shared memory stays within the 48 KB a block gets by default
+MAX_WINDOW = 33  # the kernel is instantiated for every window 1..33 (kMaxWindow)
 
 
 def _nvcc() -> str:

@@ -9,7 +9,7 @@ so the image border never erodes inward.  Arrays are ``(..., H, W)`` floats.
 tensor it runs the hand-written kernel of
 :mod:`building_detection_tpu_torch.kernels.edge_weights`.  ``fill_holes``
 and ``majority_vote`` are not ported: production uses the host code in
-``building_detection_tpu.post``.
+``building_detection_tpu_torch.post``.
 """
 from __future__ import annotations
 

@@ -15,7 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from building_detection_tpu.core.config import TilerConfig
+from building_detection_tpu_torch.core.config import TilerConfig
 
 
 @dataclasses.dataclass(frozen=True)

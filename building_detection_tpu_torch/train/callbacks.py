@@ -1,21 +1,20 @@
 """Epoch callbacks for :meth:`Trainer.fit` and :meth:`Trainer.fit_arrays`.
 
-The counterpart of ``building_detection_tpu/train/callbacks.py``, whose
-``EpochVisualizer`` runs the JAX model and so cannot serve the port.
-:class:`EpochVisualizer` here runs the trainer's torch model;
-``EarlyStopping`` holds no model and is the JAX package's own.  A callback
-is ``cb(trainer, epoch, metrics) -> bool``; True stops training.
+The counterpart of ``building_detection_tpu/train/callbacks.py``.
+:class:`EpochVisualizer` runs the trainer's torch model; :class:`EarlyStopping`
+holds no model and is a copy of the JAX package's.  A callback is
+``cb(trainer, epoch, metrics) -> bool``; True stops training.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from building_detection_tpu.train.callbacks import EarlyStopping  # noqa: F401  (re-exported)
 from building_detection_tpu_torch.ops import tiling as T
+from building_detection_tpu_torch.utils import io as uio
 
 
 class EpochVisualizer:
@@ -31,8 +30,6 @@ class EpochVisualizer:
         os.makedirs(out_dir, exist_ok=True)
 
     def __call__(self, trainer, epoch: int, metrics: Dict[str, float]) -> bool:
-        from building_detection_tpu.utils import io as uio  # PIL: only when an image is written
-
         x = T.normalize(torch.from_numpy(self.image[None]).to(trainer.device), dtype=trainer.compute_dtype)
         trainer.model.eval()
         with torch.no_grad():
@@ -44,4 +41,38 @@ class EpochVisualizer:
         canvas[:, w + 8 : 2 * w + 8] = self.label[..., None]
         canvas[:, 2 * w + 16 :] = pred[..., None]
         uio.imwrite(os.path.join(self.out_dir, f"epoch_{epoch + 1}_display.png"), canvas)
+        return False
+
+
+class EarlyStopping:
+    """Stop when ``monitor`` has not improved for ``patience`` epochs (the
+    reference intended this on val_PA but left it commented out,
+    `res34.py:610-623`)."""
+
+    def __init__(self, monitor: str = "val_PA", patience: int = 12, mode: str = "max"):
+        self.monitor = monitor
+        self.patience = patience
+        self.mode = mode
+        self.best: Optional[float] = None
+        self.bad_epochs = 0
+        self.stopped_epoch: Optional[int] = None
+
+    def __call__(self, trainer, epoch: int, metrics: Dict[str, float]) -> bool:
+        value = metrics.get(self.monitor)
+        if value is None:
+            return False
+        improved = (
+            self.best is None
+            or (self.mode == "max" and value >= self.best)
+            or (self.mode == "min" and value <= self.best)
+        )
+        if improved:
+            self.best = value
+            self.bad_epochs = 0
+            return False
+        self.bad_epochs += 1
+        if self.bad_epochs >= self.patience:
+            self.stopped_epoch = epoch + 1
+            print(f"Epoch {self.stopped_epoch}: early stopping ({self.monitor})")
+            return True
         return False

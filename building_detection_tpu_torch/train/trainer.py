@@ -35,7 +35,8 @@ from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from building_detection_tpu.core.config import AugmentConfig, TrainConfig
+from building_detection_tpu_torch.core.config import AugmentConfig, TrainConfig
+from building_detection_tpu_torch.core.device import check_device
 from building_detection_tpu_torch.core.module import (
     init_layers,
     jax_params,
@@ -78,7 +79,8 @@ Metrics = Dict[str, torch.Tensor]
 
 
 class Trainer:
-    """One model trained on one ``device`` (``'cpu'``, ``'cuda'``, ...).
+    """One model trained on one ``device``: the card by default, or
+    ``'cpu'``.
 
     ``model_name`` is a registry name or a callable returning a model built
     from the port's layers (its weights are drawn with
@@ -99,15 +101,14 @@ class Trainer:
         augment=None,
         augment_seed: int = 0,
         tp: bool = False,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
     ):
         if mesh is not None or tp:
             raise NotImplementedError("multi-device and tensor-parallel training are slice 3 of the port")
         if remat:
             raise NotImplementedError("remat (rematerialised stages) is not ported")
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} asked for, but torch sees no CUDA card")
+        check_device(self.device)
         if isinstance(model_name, str):
             self.model_name, model = model_name, build_model(model_name)
         else:

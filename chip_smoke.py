@@ -6,21 +6,24 @@ Usage, from the root of a checkout, with one card visible:
     python3 chip_smoke.py
 
 It builds the port's hand-written kernel from ``building_detection_tpu_torch/csrc``
-with ``nvcc``, checks it against its plain PyTorch twin on the card, and drives
-the port's two paths at full width, random weights from a seed:
+with ``nvcc``, checks it bit for bit against its plain PyTorch twin on the
+card at every case of ``EDGE_CHECKS``, and drives the port's two paths at
+full width, random weights from a seed, through the entry points on their
+default device (the card):
 
-* serving: the five-member ensemble through ``Pipeline.predict_images`` on
-  512x512 tiles in bf16, and ``make_targets``;
-* training: ``Trainer(device="cuda")`` steps for each of the five members on
-  512x512 tiles at batch 8, in f32 and bf16, with ``make_targets`` (and so
-  the kernel) inside every step; one f32 step per member held against the
-  same step on the CPU; save/restore and the staged epoch held against the
-  per-step path.
+* serving: the five-member ensemble through ``Pipeline().predict_images`` on
+  512x512 tiles in bf16, the port's own ``DetectionService`` (fusion,
+  polygons and geometry are the port's copies), and ``make_targets``;
+* training: ``Trainer`` steps for each of the five members on 512x512 tiles
+  at batch 8, in f32 and bf16, with ``make_targets`` (and so the kernel)
+  inside every step; one f32 step per member held against the same step on
+  the CPU; save/restore and the staged epoch held against the per-step path.
 
-It imports nothing of JAX.  Any failed check exits non-zero before the
-result lines.  The second-to-last line is a JSON object with each kernel's
-launches on the two paths, its error against the twin and both times; the
-last line is ``{"ok": true, "device": {...}}``.
+It imports nothing of JAX and nothing of the JAX package.  Any failed check
+exits non-zero before the result lines.  The second-to-last line is a JSON
+object with each kernel's launches on the two paths, its error against the
+twin, its time, the twin's, its bound and share of it; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -37,6 +40,25 @@ SEED = 0
 SWEEP = (8, 16, 32, 64)           # batch_tiles values timed on the ensemble forward
 PARITY_ATOL = 1e-3                # f32 card vs CPU, ~100 layers summed in other orders
 EDGE_SHAPE = (8, 512, 512)        # the trainer's label batch
+# (shape, kernel, iterations, weight, storage offset in floats) the kernel is
+# held bit-equal to its twin at: the trainer's batch; odd sizes with two
+# odd windows; an even window; W not a multiple of 4; rows wider than one
+# 512-column chunk (aligned, and ragged); a base pointer off 16 bytes; the
+# smallest and largest windows; a strip taller than the image.
+EDGE_CHECKS = (
+    (EDGE_SHAPE, 3, 5, 2.0, 0),
+    ((3, 77, 131), 2, 4, 3.0, 0),
+    ((3, 77, 131), 5, 2, 1.5, 0),
+    ((2, 64, 96), 2, 3, 2.0, 0),
+    ((2, 40, 1100), 3, 5, 2.0, 0),
+    ((1, 37, 1030), 4, 3, 2.0, 0),
+    ((2, 64, 96), 3, 5, 2.0, 1),
+    ((2, 30, 50), 1, 1, 2.0, 0),
+    ((2, 70, 600), 3, 16, 2.0, 0),
+    ((2, 5, 40), 3, 5, 2.0, 0),
+)
+HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory, NVIDIA's data sheet
+F32_OPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores, same source
 TRAIN_STEPS = 5                   # full-width steps per member and dtype, on one fixed batch
 TRAIN_PARITY_PX = 64              # the card-vs-CPU train step: 64 px, batch 2
 # Tolerances of that step, card vs CPU, f32 with TF32 off.  The loss is one
@@ -116,9 +138,9 @@ def phase_device():
             say("device", f"{mod} importable")
         except ImportError:
             say("device", f"{mod} absent")
-    from building_detection_tpu.post import geometry
+    from building_detection_tpu_torch.post import geometry
 
-    say("device", "native geometry library " + ("loaded" if geometry._nat is not None else "absent: numpy fallback"))
+    say("device", "native geometry library " + ("loaded" if geometry.native() is not None else "absent: numpy path"))
     return name, smi_line
 
 
@@ -130,31 +152,95 @@ def phase_build():
     say("build", f"edge_weights.cu built and loaded in {time.perf_counter() - t0:.1f} s")
 
 
+def edge_label(shape, seed: int, offset: int = 0):
+    """A seeded {0,1} label on the card; ``offset`` floats into its storage."""
+    import torch
+
+    lab = torch.from_numpy(labels_np(seed, shape))
+    buf = torch.empty(offset + lab.numel(), dtype=torch.float32, device="cuda")
+    out = buf[offset:].view(shape)
+    out.copy_(lab)
+    return out
+
+
+def edge_bound_ms(shape, kernel: int, iterations: int) -> "tuple[float, str]":
+    """The least time of one call: 4 bytes read and 8 written per pixel over
+    the memory rate, or two separable passes of (win - 1) min and max taps
+    plus the two subtractions and compares per pixel over the f32 rate."""
+    px = math.prod(shape)
+    win = iterations * (kernel - 1) + 1
+    by_bytes = 12 * px / HBM_BYTES_PER_S * 1e3
+    by_ops = px * (4 * (win - 1) + 4) / F32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def device_us(fn, flush, runs: int = 10):
+    """Mean device time in microseconds of the edge-weight kernel over
+    ``runs`` calls of ``fn`` (``flush()`` before each), from torch.profiler's
+    kernel records; None where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    for event in prof.key_averages():
+        if "edge_weight_kernel" in event.key:
+            total = getattr(event, "device_time_total", None) or getattr(event, "cuda_time_total", 0.0)
+            return total / max(event.count, 1) if total else None
+    return None
+
+
 def phase_edge_check():
-    """Kernel vs plain twin on the card at the trainer's shape, and times."""
+    """Kernel vs plain twin on the card at every EDGE_CHECKS case (bit for
+    bit), and both times at the trainer's shape.  Beside them, what the
+    kernel's reading is made of: the method's floor (a one-element kernel
+    timed the same way), the reading with L2 flushed by a read (clean
+    lines) instead of a write (dirty lines), the kernel's own device time
+    from torch.profiler, and the time per call back to back with L2 warm."""
     import torch
 
     from building_detection_tpu_torch.kernels import edge_weights as K
 
-    lab = torch.from_numpy(labels_np(SEED, EDGE_SHAPE)).cuda()
-    got = K.edge_weight_maps(lab)
-    want = K.edge_weight_maps_plain(lab)
-    torch.cuda.synchronize()
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    for g, w in zip(got, want):
-        check(torch.equal(g, w), "edge_weight_maps kernel differs from its plain twin")
-    for kernel, iters, weight in ((2, 4, 3.0), (5, 2, 1.5)):
-        odd = torch.from_numpy(labels_np(SEED + 1, (3, 77, 131))).cuda()
-        for g, w in zip(K.edge_weight_maps(odd, kernel, iters, weight),
-                        K.edge_weight_maps_plain(odd, kernel, iters, weight)):
-            check(torch.equal(g, w), f"kernel differs from twin at kernel={kernel} x{iters}")
+    err = 0.0
+    for i, (shape, kernel, iters, weight, offset) in enumerate(EDGE_CHECKS):
+        lab = edge_label(shape, SEED + i, offset)
+        got = K.edge_weight_maps(lab, kernel, iters, weight)
+        want = K.edge_weight_maps_plain(lab, kernel, iters, weight)
+        torch.cuda.synchronize()
+        err = max([err] + [float((g - w).abs().max()) for g, w in zip(got, want)])
+        for g, w in zip(got, want):
+            check(torch.equal(g, w), f"kernel differs from its twin at {shape} kernel={kernel} x{iters} "
+                                     f"weight={weight} offset={offset}")
+    say("edge", f"kernel bit-equal to its plain twin at all {len(EDGE_CHECKS)} cases "
+                f"(shapes, windows 1-33 odd and even, ragged and misaligned rows)")
+    lab = edge_label(EDGE_SHAPE, SEED)
     scratch = torch.empty(64 << 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
     flush = scratch.zero_
     ms = cuda_ms(lambda: K.edge_weight_maps(lab), 30, flush)
     plain_ms = cuda_ms(lambda: K.edge_weight_maps_plain(lab), 30, flush)
-    say("edge", f"kernel bit-equal to plain at {EDGE_SHAPE}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                f"(median of 30, L2 flushed before each)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    bound_ms, bound_by = edge_bound_ms(EDGE_SHAPE, 3, 5)
+    say("edge", f"at {EDGE_SHAPE}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 30, L2 flushed by a "
+                f"256 MB write before each); bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / ms:.1f} % of it")
+    one = torch.zeros(1, device="cuda")
+    sink = torch.empty((), dtype=torch.float32, device="cuda")
+    floor_ms = cuda_ms(lambda: one.add_(1.0), 30, flush)
+    read_ms = cuda_ms(lambda: K.edge_weight_maps(lab), 30, lambda: torch.sum(scratch, 0, out=sink))
+    dev_us = device_us(lambda: K.edge_weight_maps(lab), flush)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(100):
+        K.edge_weight_maps(lab)
+    end.record()
+    end.synchronize()
+    say("edge", f"floor of the method (one-element kernel, same flush) {floor_ms:.4f} ms; kernel with L2 flushed by a "
+                f"read {read_ms:.4f} ms; device time (torch.profiler, mean of 10) "
+                f"{'not seen' if dev_us is None else f'{dev_us:.2f} us'}; back to back, L2 warm "
+                f"{start.elapsed_time(end) / 100:.4f} ms a call")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "pct_of_bound": 100 * bound_ms / ms, "library_ms": None}
 
 
 def phase_normalize():
@@ -227,7 +313,7 @@ def phase_main_path(pipe):
     """The counted serving run: the port's entry points, once each, on the card."""
     import torch
 
-    from building_detection_tpu.core.config import TrainConfig
+    from building_detection_tpu_torch.core.config import TrainConfig
     from building_detection_tpu_torch.kernels import edge_weights as K
     from building_detection_tpu_torch.train.trainer import make_targets
 
@@ -300,7 +386,7 @@ def phase_serving(pipe):
 
     import numpy as np
 
-    from building_detection_tpu.serve.server import DetectionService
+    from building_detection_tpu_torch.serve.server import DetectionService
 
     rng = np.random.RandomState(SEED + 3)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
@@ -331,7 +417,7 @@ def phase_train_parity():
     import numpy as np
     import torch
 
-    from building_detection_tpu.core.config import TrainConfig
+    from building_detection_tpu_torch.core.config import TrainConfig
     from building_detection_tpu_torch.core.module import jax_variables
     from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER
     from building_detection_tpu_torch.train.trainer import Trainer
@@ -345,7 +431,8 @@ def phase_train_parity():
         for i, name in enumerate(ENSEMBLE_ORDER):
             runs = {}
             for dev in ("cuda", "cpu"):
-                tr = Trainer(name, cfg, steps_per_epoch=3, seed=SEED + i, device=dev)
+                on = {} if dev == "cuda" else {"device": "cpu"}  # the card is the default
+                tr = Trainer(name, cfg, steps_per_epoch=3, seed=SEED + i, **on)
                 loss = tr.train_on_batch(imgs, labs)["loss"]
                 runs[dev] = (loss, *jax_variables(tr.model))
             (lc, pc, sc), (lh, ph, sh) = runs["cuda"], runs["cpu"]
@@ -368,7 +455,7 @@ def phase_train_full():
     TRAIN_STEPS steps on one fixed batch, f32 and bf16."""
     import torch
 
-    from building_detection_tpu.core.config import TrainConfig
+    from building_detection_tpu_torch.core.config import TrainConfig
     from building_detection_tpu_torch.kernels import edge_weights as K
     from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER
     from building_detection_tpu_torch.train.trainer import Trainer
@@ -378,7 +465,8 @@ def phase_train_full():
     K.edge_weight_maps.launches = 0
     for dtype in (torch.float32, torch.bfloat16):
         for i, name in enumerate(ENSEMBLE_ORDER):
-            tr = Trainer(name, cfg, seed=SEED + i, compute_dtype=dtype, device="cuda")
+            tr = Trainer(name, cfg, seed=SEED + i, compute_dtype=dtype)
+            check(tr.device.type == "cuda", f"Trainer() trains on {tr.device}, not the card")
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             before = K.edge_weight_maps.launches
@@ -415,7 +503,7 @@ def phase_train_resume_and_staged():
     import numpy as np
     import torch
 
-    from building_detection_tpu.core.config import TrainConfig
+    from building_detection_tpu_torch.core.config import TrainConfig
     from building_detection_tpu_torch.core.module import jax_variables
     from building_detection_tpu_torch.train.trainer import Trainer
 
@@ -427,21 +515,21 @@ def phase_train_resume_and_staged():
     try:
         with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
             path = os.path.join(root, "step1.npz")
-            a = Trainer("res34", cfg, seed=SEED, device="cuda")
+            a = Trainer("res34", cfg, seed=SEED)
             a.train_on_batch(imgs[:b], labs[:b])
             a.save(path)
             want = a.train_on_batch(imgs[b:], labs[b:])["loss"]
-            fresh = Trainer("res34", cfg, seed=SEED + 9, device="cuda")
+            fresh = Trainer("res34", cfg, seed=SEED + 9)
             fresh.restore(path)
             check(fresh.step == 1, f"restored step {fresh.step}, saved 1")
             got = fresh.train_on_batch(imgs[b:], labs[b:])["loss"]
             say("train-ckpt", f"res34: next loss after restore {got!r}, uninterrupted {want!r}")
             check(got == want, "restore did not reproduce the uninterrupted run's next loss")
             del a, fresh
-        loop = Trainer("res34", cfg, seed=SEED, device="cuda")
+        loop = Trainer("res34", cfg, seed=SEED)
         loop_losses = [loop.train_on_batch(imgs[i * b:(i + 1) * b], labs[i * b:(i + 1) * b])["loss"]
                        for i in range(2)]
-        staged = Trainer("res34", cfg, seed=SEED, device="cuda")
+        staged = Trainer("res34", cfg, seed=SEED)
         metrics = staged.train_epoch_staged(*staged.stage_dataset(imgs, labs))
         pl, ps = jax_variables(loop.model)
         pst, sst = jax_variables(staged.model)
@@ -470,7 +558,8 @@ def main() -> int:
     edge = phase_edge_check()
     phase_normalize()
     phase_parity()
-    pipe = Pipeline(device="cuda", compute_dtype=torch.bfloat16, seed=SEED)
+    pipe = Pipeline(compute_dtype=torch.bfloat16, seed=SEED)
+    check(pipe.ensemble.device.type == "cuda", f"Pipeline() runs on {pipe.ensemble.device}, not the card")
     launches = phase_main_path(pipe)
     phase_serving(pipe)
     phase_sweep(pipe)

@@ -3,7 +3,8 @@
 full-width ``Trainer`` step, which launches the kernel once.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
-file imports no JAX, so it also runs on a machine with the card and no JAX;
+file imports neither JAX nor the JAX package, so it also runs on a machine
+with the card and no JAX;
 there the suite's ``conftest.py`` (which imports JAX) is left out:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -15,7 +16,7 @@ import pytest
 import torch
 from torch import nn
 
-from building_detection_tpu.core.config import TilerConfig, TrainConfig
+from building_detection_tpu_torch.core.config import TilerConfig, TrainConfig
 from building_detection_tpu_torch.core.module import Namer, load_jax_variables
 from building_detection_tpu_torch.infer.fused_ensemble import FusedEnsemblePredictor
 from building_detection_tpu_torch.kernels import edge_weights as K
@@ -83,8 +84,9 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "shape,args",
-    [((8, 512, 512), ()), ((3, 77, 131), (2, 4, 3.0)), ((2, 40, 33), (5, 2, 1.5)), ((1, 1, 1), ())],
-    ids=["train_shape", "odd_even_kernel", "kernel5", "one_pixel"],
+    [((8, 512, 512), ()), ((3, 77, 131), (2, 4, 3.0)), ((2, 40, 33), (5, 2, 1.5)), ((1, 1, 1), ()),
+     ((2, 64, 96), (2, 3)), ((1, 37, 1030), (4, 3)), ((2, 70, 600), (3, 16))],
+    ids=["train_shape", "odd_even_kernel", "kernel5", "one_pixel", "even_window", "wide_ragged", "window33"],
 )
 def test_kernel_bit_equal_to_plain(cuda, shape, args):
     lab = torch.from_numpy(np.random.RandomState(2).rand(*shape) < 0.3).float().to(cuda)

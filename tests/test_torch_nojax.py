@@ -1,23 +1,35 @@
-"""The PyTorch port runs without JAX, PIL and OpenCV: the machine with the
-card has none of them.  In a subprocess that blocks those imports, every
-module of the port imports, and ``make_targets``, a ``Pipeline`` over a
-tiny member and a ``Trainer`` (augmented steps, the staged epoch, save and
-restore) run end to end on the CPU."""
+"""The PyTorch port stands alone: it runs without JAX, PIL, OpenCV and the
+JAX package, and its entry points run on the card unless asked for the CPU.
+
+* In a subprocess that blocks ``jax``, ``PIL``, ``cv2`` and
+  ``building_detection_tpu`` itself, every module of the port imports, and
+  ``make_targets``, a ``Pipeline`` over tiny members (fusion and polygons
+  included), the geometry on both of its paths and a ``Trainer`` (augmented
+  steps, the staged epoch, save and restore) run end to end on the CPU.
+* No file of the port, and not ``chip_smoke.py``, imports the JAX package
+  (an AST scan, which also sees imports inside functions).
+* ``Pipeline()``, ``FusedEnsemblePredictor`` and ``Trainer`` with no device
+  argument ask for the card, and raise where torch sees none.
+"""
+import ast
 import os
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
+import pytest
 import torch
 
 torch.set_num_threads(2)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REPO = Path(__file__).resolve().parents[1]
+JAX_PACKAGE = "building_detection_tpu"
 
 SCRIPT = textwrap.dedent(
     """
     import sys
-    for blocked in ("jax", "jaxlib", "PIL", "cv2"):
+    for blocked in ("jax", "jaxlib", "PIL", "cv2", "building_detection_tpu"):
         sys.modules[blocked] = None
     import importlib, pkgutil
     import numpy as np
@@ -26,13 +38,13 @@ SCRIPT = textwrap.dedent(
     import building_detection_tpu_torch as pkg
     for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         importlib.import_module(info.name)
-    from building_detection_tpu.core.config import Config, TilerConfig
+    from building_detection_tpu_torch.core.config import Config, TilerConfig, TrainConfig
     from building_detection_tpu_torch.core.module import Namer, init_layers
     from building_detection_tpu_torch.infer.fused_ensemble import FusedEnsemblePredictor
     from building_detection_tpu_torch.infer.pipeline import Pipeline
-    from building_detection_tpu_torch.kernels import edge_weights
     from building_detection_tpu_torch.nn import layers as L
-    from building_detection_tpu_torch.train.trainer import make_targets
+    from building_detection_tpu_torch.post import geometry as G
+    from building_detection_tpu_torch.train.trainer import Trainer, make_targets
 
     labels = torch.zeros(2, 32, 32, dtype=torch.uint8)
     labels[:, 8:20, 8:20] = 255
@@ -40,19 +52,25 @@ SCRIPT = textwrap.dedent(
     assert y.shape == (2, 32, 32, 4) and float(y[..., 2:].max()) == 2.0
 
     cfg = Config(tiler=TilerConfig(tile=32, stride=24, overlap=8))
-    pipe = Pipeline(models=(), cfg=cfg, compute_dtype=torch.float32)
+    pipe = Pipeline(models=(), cfg=cfg, compute_dtype=torch.float32, device="cpu")
     members = {
         f"m{i}": init_layers(L.Conv2d(Namer(), 3, 2, 3, activation="softmax").eval(), torch.Generator().manual_seed(i))
         for i in range(5)
     }
-    pipe.ensemble = FusedEnsemblePredictor(members, cfg.tiler, 4, torch.float32)
+    pipe.ensemble = FusedEnsemblePredictor(members, cfg.tiler, 4, torch.float32, "cpu")
     img = np.random.RandomState(0).randint(0, 256, (70, 100, 3), np.uint8)
     (res,) = pipe.predict_images([img])
     assert res.masks["m0"].shape == (70, 100) and res.fused.shape == (70, 100)
 
+    square = np.zeros((20, 20), np.uint8)
+    square[4:12, 5:15] = 1
+    assert G.native() is not None, "the geometry library did not build"
+    native = G.find_contours(square)
+    G.native.cache_clear()
+    G.native = lambda: None
+    assert [c.tolist() for c in G.find_contours(square)] == [c.tolist() for c in native]
+
     import os, tempfile
-    from building_detection_tpu.core.config import TrainConfig
-    from building_detection_tpu_torch.train.trainer import Trainer
 
     class Tiny(torch.nn.Module):
         def __init__(self):
@@ -65,29 +83,64 @@ SCRIPT = textwrap.dedent(
             return self.out(L.relu(self.bn(self.conv(x))))
 
     cfg = TrainConfig(batch_size=2, image_size=16, epochs=1, warmup_epochs=0)
-    tr = Trainer(Tiny, cfg, steps_per_epoch=2, augment=True)
+    tr = Trainer(Tiny, cfg, steps_per_epoch=2, augment=True, device="cpu")
     imgs = np.random.RandomState(1).randint(0, 256, (4, 16, 16, 3), np.uint8)
     labs = np.where(np.random.RandomState(2).rand(4, 16, 16) < 0.4, 255, 0).astype(np.uint8)
     hist = tr.fit_arrays(imgs, labs, log_fn=lambda s: None)
     assert len(hist) == 1 and np.isfinite(hist[0]["loss"]) and tr.step == 2
     with tempfile.TemporaryDirectory() as d:
         tr.save(os.path.join(d, "t.npz"))
-        again = Trainer(Tiny, cfg, steps_per_epoch=2, augment=True, seed=1)
+        again = Trainer(Tiny, cfg, steps_per_epoch=2, augment=True, seed=1, device="cpu")
         again.restore(os.path.join(d, "t.npz"))
         assert again.step == 2 and again.optimizer.count == 2
-    for mod in ("jax", "PIL", "cv2"):
+    for mod in ("jax", "PIL", "cv2", "building_detection_tpu"):
         assert sys.modules[mod] is None, mod
-    assert "building_detection_tpu.utils.io" not in sys.modules
-    assert "building_detection_tpu.serve.server" not in sys.modules
+    assert not [m for m in sys.modules if m.startswith("building_detection_tpu.")]
     print("NOJAX-OK")
     """
 )
 
 
-def test_port_runs_without_jax_pil_and_cv2():
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+def test_port_runs_without_jax_pil_cv2_and_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     done = subprocess.run(
         [sys.executable, "-c", SCRIPT], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
     )
     assert done.returncode == 0, done.stderr[-4000:]
     assert "NOJAX-OK" in done.stdout
+
+
+def imported_modules(path: Path):
+    """Every module name an ``import`` or ``from ... import`` of ``path``
+    names, at any depth of the file."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+PORT_FILES = sorted((REPO / "building_detection_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_file_of_the_port_imports_the_jax_package(path):
+    bad = [m for m in imported_modules(path) if m == JAX_PACKAGE or m.startswith(JAX_PACKAGE + ".")]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_the_scan_sees_a_jax_package_import(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("def f():\n    from building_detection_tpu.post import geometry\n    import building_detection_tpu\n")
+    assert list(imported_modules(probe)) == ["building_detection_tpu.post", "building_detection_tpu"]
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    from building_detection_tpu_torch.infer.fused_ensemble import FusedEnsemblePredictor
+    from building_detection_tpu_torch.infer.pipeline import Pipeline
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: Pipeline(), lambda: FusedEnsemblePredictor({}), lambda: Trainer("res34")):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            make()

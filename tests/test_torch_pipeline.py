@@ -36,8 +36,8 @@ def tiny_member(s, x):
 
 
 def port_pipeline(cfg=CFG):
-    pipe = Pipeline(models=(), cfg=cfg, compute_dtype=torch.float32)
-    pipe.ensemble = FusedEnsemblePredictor(tiny_members(), cfg.tiler, 4, torch.float32)
+    pipe = Pipeline(models=(), cfg=cfg, compute_dtype=torch.float32, device="cpu")
+    pipe.ensemble = FusedEnsemblePredictor(tiny_members(), cfg.tiler, 4, torch.float32, "cpu")
     return pipe
 
 
@@ -107,7 +107,7 @@ def test_loads_jax_checkpoints(tmp_path):
     params, state = jax_variables(init_model("hrnet", torch.Generator().manual_seed(1)))
     path = str(tmp_path / "hrnet.npz")
     save_variables(path, params, state)
-    pipe = Pipeline({"hrnet": path}, cfg=CFG, models=("hrnet",), compute_dtype=torch.float32)
+    pipe = Pipeline({"hrnet": path}, cfg=CFG, models=("hrnet",), compute_dtype=torch.float32, device="cpu")
     got_p, got_s = jax_variables(pipe.ensemble.models["hrnet"])
     for want, got in ((params, got_p), (state, got_s)):
         assert set(got) == set(want)
@@ -117,11 +117,11 @@ def test_loads_jax_checkpoints(tmp_path):
 
 def test_later_features_are_refused(port, tmp_path):
     with pytest.raises(NotImplementedError, match="engine"):
-        Pipeline(models=(), fused=False)
+        Pipeline(models=(), fused=False, device="cpu")
     with pytest.raises(NotImplementedError, match="int8"):
-        Pipeline(models=(), int8_pointwise=True)
+        Pipeline(models=(), int8_pointwise=True, device="cpu")
     with pytest.raises(NotImplementedError, match=".h5"):
-        Pipeline({"scse": str(tmp_path / "scse.h5")}, models=("scse",))
+        Pipeline({"scse": str(tmp_path / "scse.h5")}, models=("scse",), device="cpu")
     port.max_scene_tiles = 4
     try:
         with pytest.raises(NotImplementedError, match="large-scene"):

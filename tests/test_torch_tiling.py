@@ -94,7 +94,7 @@ def test_pack_bitplanes_in_packbits_order(shape, n_bits):
 
 def test_split_group_matches_jax():
     jax_pred = JFE.FusedEnsemblePredictor({}, batch_tiles=128)
-    port = FE.FusedEnsemblePredictor({}, batch_tiles=128)
+    port = FE.FusedEnsemblePredictor({}, batch_tiles=128, device="cpu")
     for count in range(1, 70):
         for cap in (1, 2, 5, 14, 32, 128):
             assert port._split_group(count, cap) == jax_pred._split_group(count, cap)

@@ -312,7 +312,7 @@ def test_jax_checkpoint_restores_in_port(tmp_path):
     path = str(tmp_path / "jax.npz")
     jt.save(path)
     want = jt.train_on_batch(imgs, labs)["loss"]
-    pt = Trainer(TorchTiny, CKPT_CFG, steps_per_epoch=3)
+    pt = Trainer(TorchTiny, CKPT_CFG, steps_per_epoch=3, device="cpu")
     pt.restore(path)
     assert pt.step == 2 and pt.optimizer.count == 2
     params, state = jax_variables(pt.model)
@@ -328,7 +328,7 @@ def test_jax_checkpoint_restores_in_port(tmp_path):
 
 def test_port_checkpoint_restores_in_jax(tmp_path):
     imgs, labs = tiny_data(1)
-    pt = Trainer(TorchTiny, CKPT_CFG, steps_per_epoch=3, seed=4)
+    pt = Trainer(TorchTiny, CKPT_CFG, steps_per_epoch=3, seed=4, device="cpu")
     for _ in range(2):
         pt.train_on_batch(imgs, labs)
     path = str(tmp_path / "port.npz")
@@ -358,6 +358,6 @@ def test_wrong_model_checkpoint_raises(tmp_path):
             return self.conv(x)
 
     path = str(tmp_path / "other.npz")
-    Trainer(Other, CKPT_CFG).save(path)
+    Trainer(Other, CKPT_CFG, device="cpu").save(path)
     with pytest.raises(ValueError, match="does not match model"):
-        Trainer(TorchTiny, CKPT_CFG).load_weights(path)
+        Trainer(TorchTiny, CKPT_CFG, device="cpu").load_weights(path)

@@ -71,7 +71,7 @@ def run(name):
     jt = JaxTrainer(name, CFG, steps_per_epoch=STEPS, mesh=make_mesh(data=1))
     p0 = {k: np.asarray(v) for k, v in jax.device_get(jt.params).items()}
     s0 = {k: np.asarray(v) for k, v in jax.device_get(jt.state).items()}
-    pt = Trainer(name, CFG, steps_per_epoch=STEPS)
+    pt = Trainer(name, CFG, steps_per_epoch=STEPS, device="cpu")
     load_jax_variables(pt.model, p0, s0)
     steps = []
     for i in range(STEPS):

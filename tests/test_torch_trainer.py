@@ -40,6 +40,7 @@ CFG = TrainConfig(batch_size=4, image_size=16, epochs=2, warmup_epochs=1)
 
 
 def trainer(**kw):
+    kw.setdefault("device", "cpu")
     return Trainer(TorchTiny, kw.pop("cfg", CFG), steps_per_epoch=kw.pop("steps_per_epoch", 3), **kw)
 
 
