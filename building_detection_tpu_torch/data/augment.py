@@ -1,4 +1,4 @@
-"""On-device training augmentation: ``augment_batch`` of the JAX package, split in two.
+"""Data augmentation: on-device training transforms and the offline dataset builder.
 
 The counterpart of ``building_detection_tpu/data/augment.py::augment_batch``
 (the reference's ``Data_Enhance`` menu, applied in place per sample):
@@ -14,16 +14,24 @@ The counterpart of ``building_detection_tpu/data/augment.py::augment_batch``
 ``(augment_seed, step)``, so a step's batch is the same on every device and
 on the staged and per-step paths.  torch cannot reproduce JAX's threefry
 bits, so the tests hand both packages the same decisions.
-``DatasetBuilder`` (the offline builder) is not ported.
+
+:class:`DatasetBuilder` is the port's copy of the JAX package's offline,
+file-in / file-out builder (`data_enhancement.py:39-203`): augmented copies
+and the 9:1 split written to disk, its draws from
+``np.random.RandomState(seed)`` in the same order, so one seed writes the
+same files, byte for byte, in both packages.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import os
+import shutil
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from building_detection_tpu_torch.core.config import AugmentConfig
+from building_detection_tpu_torch.utils import io as uio
 
 
 class Decisions(NamedTuple):
@@ -118,3 +126,173 @@ def augment_batch(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The batch of global step ``step`` under ``augment_seed``."""
     return apply_augment(images, labels, draw_decisions(images.shape[0], augment_seed, step, cfg), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Offline dataset builder (reference-faithful, file in / file out)
+# ---------------------------------------------------------------------------
+class DatasetBuilder:
+    """``Data_Enhance``: write augmented copies and split 9:1.
+
+    Unlike the reference, paths are constructor arguments, augmentation is
+    seedable, and the train/val split writes to four distinct directories
+    (the reference's split writes train and val to the same folders,
+    `data_enhancement.py:167-170`).  Per image, with the reference's
+    probabilities (`data_enhancement.py:73-98`): the original; p=0.8 flip
+    up-down (``_1``); p=0.8 flip left-right (``_2``); p=0.8 random scale
+    0.6-2.0x with gray padding or centre crop and a nested random flip
+    (``_3``); p=0.3 channel swap (``_4``).
+    """
+
+    def __init__(
+        self,
+        read_img_path: str,
+        read_lab_path: str,
+        save_img_path: str,
+        save_lab_path: str,
+        cfg: AugmentConfig = AugmentConfig(),
+        seed: Optional[int] = None,
+    ):
+        for p in (read_img_path, read_lab_path):
+            if not os.path.exists(p):
+                raise FileNotFoundError(p)
+        self.read_img_path = read_img_path
+        self.read_lab_path = read_lab_path
+        self.save_img_path = save_img_path
+        self.save_lab_path = save_lab_path
+        os.makedirs(save_img_path, exist_ok=True)
+        os.makedirs(save_lab_path, exist_ok=True)
+        self.cfg = cfg
+        self.rng = np.random.RandomState(seed)
+
+    def _save(self, img: np.ndarray, lab: np.ndarray, stem: str) -> None:
+        uio.imwrite(os.path.join(self.save_img_path, stem + ".png"), img.astype(np.uint8))
+        uio.imwrite(os.path.join(self.save_lab_path, stem + ".png"), lab.astype(np.uint8))
+
+    def _random_scale(self, img: np.ndarray, lab: np.ndarray, scale: float):
+        """`data_enhancement.py:102-131` with the (w, h) resize-argument swap
+        fixed (a no-op on the square 512 tiles the reference processes)."""
+        from PIL import Image
+
+        h, w = img.shape[:2]
+        nh, nw = int(h * scale), int(w * scale)
+        image = np.asarray(Image.fromarray(img).resize((nw, nh), Image.BILINEAR))
+        label = np.asarray(Image.fromarray(lab).resize((nw, nh), Image.BILINEAR))
+        label = np.where(label > self.cfg.label_threshold, 255, 0).astype(np.uint8)
+        if scale < 1:
+            x, y = (w - nw) // 2, (h - nh) // 2
+            new_img = np.full((h, w, 3), self.cfg.pad_value, np.uint8)
+            new_lab = np.zeros_like(lab)
+            new_img[y : y + nh, x : x + nw] = image
+            new_lab[y : y + nh, x : x + nw] = label
+        else:
+            x = max((nw - w) // 2 - 1, 0)
+            y = max((nh - h) // 2 - 1, 0)
+            new_img = image[y : y + h, x : x + w]
+            new_lab = label[y : y + h, x : x + w]
+        r = self.rng.rand()
+        if 0.7 > r >= 0.4:
+            new_img, new_lab = new_img[::-1], new_lab[::-1]
+        elif r >= 0.7:
+            new_img, new_lab = new_img[:, ::-1], new_lab[:, ::-1]
+        return new_img, new_lab
+
+    def _draw_scale(self) -> float:
+        lo, hi = self.cfg.scale_range
+        return self.rng.randint(int(lo * 10), int(hi * 10) + 1) / 10
+
+    def run(self) -> int:
+        """Augment every image; returns the number of pairs written
+        (`data_enhancement.py:62-100`)."""
+        cfg = self.cfg
+        written = 0
+        for name in sorted(os.listdir(self.read_img_path)):
+            stem = name.rsplit(".", 1)[0]
+            img = uio.imread_rgb(os.path.join(self.read_img_path, name))
+            lab = uio.imread_gray(os.path.join(self.read_lab_path, name))
+            self._save(img, lab, stem)
+            written += 1
+            if self.rng.rand() < cfg.p_flip_ud:
+                self._save(img[::-1], lab[::-1], stem + "_1")
+                written += 1
+            if self.rng.rand() < cfg.p_flip_lr:
+                self._save(img[:, ::-1], lab[:, ::-1], stem + "_2")
+                written += 1
+            if self.rng.rand() < cfg.p_scale:
+                im3, lb3 = self._random_scale(img, lab, self._draw_scale())
+                self._save(im3, lb3, stem + "_3")
+                written += 1
+            if self.rng.rand() < cfg.p_color:
+                self._save(img[..., ::-1], lab, stem + "_4")
+                written += 1
+        return written
+
+    def run_copy_paste(
+        self,
+        donor_range: Tuple[float, float] = (0.075, 0.20),
+        max_samples: Optional[int] = None,
+    ) -> int:
+        """Instance transplant, the step the reference describes but never
+        implements (`data_enhancement.py:17-21`): images with building
+        coverage in (7.5 %, 20 %] are donors, those at or below 7.5 %
+        recipients; each recipient gets a random donor, both are randomly
+        scaled (``_random_scale``), and the donor's building pixels (image
+        and label) are copied in.  Writes ``{stem}_5`` files; returns how
+        many."""
+        lo_cov, hi_cov = donor_range
+        entries = []  # (name, coverage)
+        for name in sorted(os.listdir(self.read_img_path)):
+            lab = uio.imread_gray(os.path.join(self.read_lab_path, name))
+            entries.append((name, float(np.mean(lab > 0))))
+        donors = [n for n, cov in entries if lo_cov < cov <= hi_cov]
+        recipients = [n for n, cov in entries if cov <= lo_cov]
+        if not donors or not recipients:
+            return 0
+        written = 0
+        for name in recipients:
+            if max_samples is not None and written >= max_samples:
+                break
+            donor = donors[self.rng.randint(len(donors))]
+            d_img = uio.imread_rgb(os.path.join(self.read_img_path, donor))
+            d_lab = uio.imread_gray(os.path.join(self.read_lab_path, donor))
+            r_img = uio.imread_rgb(os.path.join(self.read_img_path, name))
+            r_lab = uio.imread_gray(os.path.join(self.read_lab_path, name))
+            if d_img.shape != r_img.shape:
+                continue  # a transplant needs matching canvases
+            d_img, d_lab = self._random_scale(d_img, d_lab, self._draw_scale())
+            r_img, r_lab = self._random_scale(r_img, r_lab, self._draw_scale())
+            mask = d_lab > 0
+            out_img = r_img.copy()
+            out_img[mask] = d_img[mask]
+            out_lab = np.where(mask, np.uint8(255), r_lab)
+            self._save(out_img, out_lab, name.rsplit(".", 1)[0] + "_5")
+            written += 1
+        return written
+
+    def split_train_val(
+        self,
+        train_img: str,
+        train_lab: str,
+        val_img: str,
+        val_lab: str,
+        split_rate: Optional[float] = None,
+    ) -> Tuple[int, int]:
+        """Sequential 9:1 split by file name (`data_enhancement.py:153-203`)."""
+        rate = split_rate if split_rate is not None else self.cfg.split_rate
+        imgs = sorted(os.listdir(self.save_img_path))
+        labs = sorted(os.listdir(self.save_lab_path))
+        if len(imgs) != len(labs):
+            raise ValueError("image/label counts differ")
+        for a, b in zip(imgs, labs):
+            if a != b:
+                raise ValueError(f"name mismatch: {a} vs {b}")
+        for d in (train_img, train_lab, val_img, val_lab):
+            os.makedirs(d, exist_ok=True)
+        split = int(len(imgs) * rate)
+        for name in imgs[:split]:
+            shutil.copy(os.path.join(self.save_img_path, name), train_img)
+            shutil.copy(os.path.join(self.save_lab_path, name), train_lab)
+        for name in imgs[split:]:
+            shutil.copy(os.path.join(self.save_img_path, name), val_img)
+            shutil.copy(os.path.join(self.save_lab_path, name), val_lab)
+        return split, len(imgs) - split

@@ -1,0 +1,191 @@
+"""Tiled scene inference, one model at a time.
+
+The counterpart of ``building_detection_tpu/infer/engine.py``.  Per scene
+and model: normalize, pad the canvas with 0.0 in normalized space, gather
+tiles, forward them in chunks of ``min(batch_tiles, num_tiles)`` (the last
+chunk padded by repeating the last origin, which the OR makes harmless),
+set a bit where the argmax of the softmax is class 1, OR the bits into a
+uint8 canvas, crop it on the device and scale it to {0, 255}.
+
+The host sees two transfers per scene: the uint8 image up (once per scene
+for the whole :class:`EnsemblePredictor`) and each mask down.  On a CUDA
+device the image goes up from pinned memory on a side stream and the mask
+comes back into pinned memory behind an event, so a caller that dispatches
+several scenes or blocks before fetching the first (``infer/large_scene.py``)
+overlaps uploads, compute and downloads.  Every host buffer a copy reads
+or writes stays referenced by the handle until :meth:`TiledPredictor.fetch`
+has waited for it.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from building_detection_tpu_torch.core.config import TilerConfig
+from building_detection_tpu_torch.core.device import check_device
+from building_detection_tpu_torch.core.module import cast_params
+from building_detection_tpu_torch.infer.fused_ensemble import DEFAULT_BATCH_TILES, fetch_pinned, upload_pinned
+from building_detection_tpu_torch.ops import tiling as T
+
+_SLICE_3 = "slice 3 of the port"
+
+
+class TiledPredictor:
+    """Runs one model over scenes of any size through sliding-window tiles.
+
+    ``model`` maps ``(B, tile, tile, 3)`` normalized tiles to ``(B, tile,
+    tile, 2)`` softmax.  The predictor takes ownership: it moves the model
+    to ``device`` (the card by default; a card that is not there raises,
+    nothing falls back) and casts its parameters to ``compute_dtype``.
+    ``mesh``, ``tp`` and int8 pointwise convs are the JAX package's
+    multi-device and int8 options, refused here.
+    """
+
+    def __init__(
+        self,
+        model: nn.Module,
+        cfg: TilerConfig = TilerConfig(),
+        batch_tiles: int = DEFAULT_BATCH_TILES,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        device="cuda",
+        mesh=None,
+        tp: bool = False,
+        int8_pointwise: bool = False,
+        int8_scales: Optional[dict] = None,
+    ):
+        if mesh is not None or tp:
+            raise NotImplementedError(f"tile data parallelism and channel TP are {_SLICE_3}")
+        if int8_pointwise or int8_scales:
+            raise NotImplementedError(f"int8 pointwise convs are {_SLICE_3}")
+        self.device = torch.device(device)
+        check_device(self.device)
+        self.model = cast_params(model.to(self.device).eval(), compute_dtype)
+        self.cfg = cfg
+        self.batch_tiles = batch_tiles
+        self.compute_dtype = compute_dtype
+        self._cuda = self.device.type == "cuda"
+        self._upload = torch.cuda.Stream(self.device) if self._cuda else None
+
+    # -- device work -------------------------------------------------------
+    def _run(self, image: torch.Tensor, plan: T.TilePlan, h: int, w: int) -> torch.Tensor:
+        """uint8 scene (``(h, w, 3)``, or the bucket canvas) -> ``(h, w)``
+        uint8 {0, 255} mask on the device."""
+        tile = self.cfg.tile
+        norm = T.normalize(image, self.cfg, dtype=self.compute_dtype)
+        # the pad region is 0.0 in normalized space (predict.py:102-104);
+        # a bucketed scene arrives host-padded, so only its real extent is kept
+        canvas = norm.new_zeros((plan.canvas_h, plan.canvas_w, 3))
+        canvas[:h, :w] = norm[:h, :w]
+        batch = min(self.batch_tiles, max(plan.num_tiles, 1))
+        origins = list(plan.origins)
+        origins += [origins[-1]] * (-len(origins) % batch)  # OR is idempotent
+        mask = torch.zeros((plan.canvas_h, plan.canvas_w), dtype=torch.uint8, device=self.device)
+        for start in range(0, len(origins), batch):
+            chunk = origins[start : start + batch]
+            tiles = torch.stack([canvas[r : r + tile, c : c + tile] for r, c in chunk])
+            bits = (torch.argmax(self.model(tiles), dim=-1) == 1).to(torch.uint8)
+            # per-tile OR == the reference's accumulate-then->=1 (predict.py:113-114)
+            for bit, (r, c) in zip(bits, chunk):
+                mask[r : r + tile, c : c + tile] |= bit
+        return mask[:h, :w] * 255
+
+    # -- staging, dispatch, fetch --------------------------------------------
+    def plan_and_stage(self, image_rgb: np.ndarray):
+        """Host-side prep: ``(plan | None, staged uint8 array, h, w)``.
+
+        Apart from :meth:`dispatch_staged` so that :class:`EnsemblePredictor`
+        uploads one staged scene and shares it across members."""
+        h, w = image_rgb.shape[:2]
+        plan = T.plan_tiles(h, w, self.cfg)
+        if plan.num_tiles == 0:
+            # dims <= overlap: the reference's loops never run, the mask is blank
+            return None, None, h, w
+        if self.cfg.bucket_sizes:
+            plan = T.bucket_plan(plan, self.cfg)
+            staged = np.zeros((plan.canvas_h, plan.canvas_w, 3), np.uint8)
+            staged[:h, :w] = image_rgb
+        else:
+            staged = image_rgb
+        return plan, staged, h, w
+
+    def upload(self, staged: np.ndarray):
+        """(scene on the device, its pinned host copy or None)."""
+        host = torch.from_numpy(np.ascontiguousarray(staged))
+        if not self._cuda:
+            return host.to(self.device), None
+        return upload_pinned(host, self.device, self._upload)
+
+    @torch.inference_mode()
+    def dispatch_staged(self, uploaded, plan: T.TilePlan, h: int, w: int):
+        """Enqueue the scene's work on an :meth:`upload`-ed scene; returns
+        the handle :meth:`fetch` takes."""
+        mask = self._run(uploaded[0], plan, h, w)
+        if not self._cuda:
+            return mask, None, uploaded, h, w
+        out, done = fetch_pinned(mask, self.device)
+        return out, done, uploaded, h, w  # `uploaded` keeps the pinned upload alive
+
+    def dispatch(self, image_rgb: np.ndarray):
+        """Enqueue one scene: upload, then :meth:`dispatch_staged`.  Nothing
+        waits for the device until :meth:`fetch`."""
+        plan, staged, h, w = self.plan_and_stage(image_rgb)
+        if plan is None:
+            return None, None, None, h, w
+        return self.dispatch_staged(self.upload(staged), plan, h, w)
+
+    @staticmethod
+    def fetch(dispatched) -> np.ndarray:
+        out, done, _, h, w = dispatched
+        if out is None:
+            return np.zeros((h, w), np.uint8)
+        if done is not None:
+            done.synchronize()
+        return out.numpy()
+
+    def predict_mask(self, image_rgb: np.ndarray) -> np.ndarray:
+        """(H, W, 3) uint8 RGB -> (H, W) uint8 {0, 255} building mask."""
+        return self.fetch(self.dispatch(image_rgb))
+
+
+class EnsemblePredictor:
+    """The five members of the reference (`predict.py:75-87`), each a
+    :class:`TiledPredictor` on ``device``; per-model masks in the members'
+    order.  Each member module is owned (moved and cast) by its predictor.
+    """
+
+    def __init__(
+        self,
+        members: Dict[str, nn.Module],
+        cfg: TilerConfig = TilerConfig(),
+        batch_tiles: int = DEFAULT_BATCH_TILES,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        device="cuda",
+        devices: Optional[list] = None,
+        int8_pointwise: bool = False,
+        int8_scales: Optional[Dict[str, dict]] = None,
+    ):
+        if devices is not None:
+            if len(devices) > 1:
+                raise NotImplementedError(f"ensemble model parallelism over several devices is {_SLICE_3}")
+            device = devices[0] if devices else device
+        if int8_pointwise or int8_scales:
+            raise NotImplementedError(f"int8 pointwise convs are {_SLICE_3}")
+        check_device(torch.device(device))
+        self.predictors = {
+            name: TiledPredictor(model, cfg, batch_tiles, compute_dtype, device) for name, model in members.items()
+        }
+        self.names = list(self.predictors)
+        self.cfg = cfg
+
+    def predict_masks(self, image_rgb: np.ndarray) -> Dict[str, np.ndarray]:
+        """Stage and upload the scene once, dispatch every member, then fetch."""
+        preds = list(self.predictors.values())
+        plan, staged, h, w = preds[0].plan_and_stage(image_rgb)
+        if plan is None:
+            return {name: np.zeros((h, w), np.uint8) for name in self.names}
+        on_device = preds[0].upload(staged)
+        dispatched = {name: p.dispatch_staged(on_device, plan, h, w) for name, p in self.predictors.items()}
+        return {name: TiledPredictor.fetch(d) for name, d in dispatched.items()}

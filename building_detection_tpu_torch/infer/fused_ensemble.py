@@ -9,7 +9,8 @@ On a CUDA device each group's scenes go up from pinned host memory on a
 separate upload stream, the compute waits for them on the current stream,
 and the bitplanes come back into pinned memory behind an event, so later
 groups' uploads and launches overlap earlier groups' compute and the host's
-post-processing.
+post-processing.  :meth:`FusedEnsemblePredictor.predict_vote` is the plain
+vote of ``bdt-predict --fast-vote``.
 """
 from __future__ import annotations
 
@@ -51,6 +52,32 @@ def _pack_bitplanes(canvas: torch.Tensor, n_bits: int) -> torch.Tensor:
 def _unpack_bitplanes(planes: np.ndarray, width: int) -> np.ndarray:
     """(n_bits, S, H, W8/8) uint8 -> (n_bits, S, H, width) {0,1} uint8."""
     return np.unpackbits(planes, axis=-1)[..., :width]
+
+
+def upload_pinned(host: torch.Tensor, device: torch.device, stream) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``host`` on the CUDA ``device``, copied from pinned memory on the side
+    ``stream``; the current stream waits for the copy, and ``record_stream``
+    keeps the allocator from reusing the device buffer before the current
+    stream's work on it is done.  Returns (device tensor, pinned host
+    tensor): the caller keeps the latter alive until its copy has run."""
+    host = host.pin_memory()
+    with torch.cuda.stream(stream):
+        on_device = host.to(device, non_blocking=True)
+    compute = torch.cuda.current_stream(device)
+    compute.wait_stream(stream)
+    on_device.record_stream(compute)
+    return on_device, host
+
+
+def fetch_pinned(t: torch.Tensor, device: torch.device) -> Tuple[torch.Tensor, "torch.cuda.Event"]:
+    """Start copying ``t`` into pinned host memory on the current stream;
+    returns (host tensor, event): read the host tensor after
+    ``event.synchronize()``."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    return out, done
 
 
 class FusedEnsemblePredictor:
@@ -162,17 +189,8 @@ class FusedEnsemblePredictor:
         host = torch.from_numpy(staged)
         if not self._cuda:
             return self._run_group(host, hw, plan), None, host
-        host = host.pin_memory()
-        with torch.cuda.stream(self._upload):
-            imgs = host.to(self.device, non_blocking=True)
-        compute = torch.cuda.current_stream(self.device)
-        compute.wait_stream(self._upload)
-        imgs.record_stream(compute)
-        planes = self._run_group(imgs, hw, plan)
-        out = torch.empty(planes.shape, dtype=torch.uint8, pin_memory=True)
-        out.copy_(planes, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(compute)
+        imgs, host = upload_pinned(host, self.device, self._upload)
+        out, done = fetch_pinned(self._run_group(imgs, hw, plan), self.device)
         return out, done, host  # `host` stays alive until its upload is done
 
     @staticmethod
@@ -276,3 +294,11 @@ class FusedEnsemblePredictor:
         for idx, masks in self.predict_masks_iter(images, max_in_flight):
             results[idx] = masks
         return results
+
+    def predict_vote(self, image_rgb: np.ndarray, threshold: int = 3) -> np.ndarray:
+        """Fast path: a plain ``threshold``-of-members vote without the
+        reference's per-model morphological cleanup (`model_fuse.py:285-313`),
+        so NOT mask-parity with the reference; the Pipeline's fusion is."""
+        masks = self.predict_masks(image_rgb)
+        votes = sum((masks[name] > 0).astype(np.int32) for name in self.names)
+        return np.where(votes >= threshold, 255, 0).astype(np.uint8)

@@ -14,6 +14,17 @@ default device (the card):
 * serving: the five-member ensemble through ``Pipeline().predict_images`` on
   512x512 tiles in bf16, the port's own ``DetectionService`` (fusion,
   polygons and geometry are the port's copies), and ``make_targets``;
+* the per-model engine: ``Pipeline(fused=False)`` over the same scenes in
+  bf16, and in f32 with TF32 off each member's mask equal to the fused
+  path's on a 1024x1024 scene (one chunk of 9 tiles on both paths);
+* blocked large scenes: a 4096x4096 scene through ``Pipeline(max_scene_tiles=64)``
+  against the whole scene (time, peak device memory, differing pixels), and
+  in f32 with TF32 off, deterministic cuDNN and one tile a forward, blocked
+  equal to whole on a 2048x2048 scene for the ensemble and one member;
+* the CLIs as subprocesses: ``bdt-predict`` over a directory (one process,
+  then two shards whose union equals it, file for file), ``bdt-serve`` on an
+  ephemeral port (``/health``, three ``POST /photo``, SIGTERM drains and
+  exits 0) and ``bdt-augment`` (host only);
 * training: ``Trainer`` steps for each of the five members on 512x512 tiles
   at batch 8, in f32 and bf16, with ``make_targets`` (and so the kernel)
   inside every step; one f32 step per member held against the same step on
@@ -70,6 +81,10 @@ TRAIN_PARITY_PX = 64              # the card-vs-CPU train step: 64 px, batch 2
 TRAIN_LOSS_ATOL = 1e-4
 TRAIN_PARAM_ATOL = 3e-5
 TRAIN_STATE_RTOL, TRAIN_STATE_ATOL = 1e-4, 1e-5
+BIG_SCENE = 4096                  # 11 x 11 = 121 tiles: blocked at max_scene_tiles=64
+EXACT_SCENE = 2048                # 6 x 6 = 36 tiles, blocks of 9: blocked == whole in f32
+CLI_SCENES = {"a": (1024, 1024), "b": (1024, 1024), "h": (700, 1300), "x": (100, 100)}
+CLI_TIMEOUT_S = 600
 
 
 class SmokeFailure(RuntimeError):
@@ -263,9 +278,7 @@ def phase_parity():
 
     from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER, init_model
 
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    saved = exact_f32()
     say("parity", "TF32 off for cuDNN convs and matmuls")
     x = torch.from_numpy(np.random.RandomState(SEED).uniform(-1, 1, (1, 128, 128, 3)).astype(np.float32))
     try:
@@ -279,7 +292,7 @@ def phase_parity():
             say("parity", f"{name}: max |softmax card - softmax cpu| = {diff:.3e} (atol {PARITY_ATOL})")
             check(diff <= PARITY_ATOL, f"{name}: card and CPU disagree by {diff}")
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        restore_backends(saved)
 
 
 def scenes():
@@ -400,6 +413,357 @@ def phase_serving(pipe):
     say("serve", "DetectionService.handle_photo answered 3 PNG requests with status success")
 
 
+def exact_f32():
+    """f32 with TF32 off and deterministic cuDNN: equal inputs at equal batch
+    shapes give equal outputs.  Returns the settings to restore."""
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    return saved
+
+
+def restore_backends(saved) -> None:
+    import torch
+
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = saved
+
+
+def seeded_members(seed: int):
+    """The five members with the Pipeline's seeded random weights."""
+    import torch
+
+    from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER, init_model
+
+    return {name: init_model(name, torch.Generator().manual_seed(seed + i)) for i, name in enumerate(ENSEMBLE_ORDER)}
+
+
+def timed(fn):
+    """(result, seconds) of ``fn()``, the card synchronized on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def scene_tiles(imgs, cfg) -> int:
+    from building_detection_tpu_torch.ops import tiling as T
+
+    return sum(T.plan_tiles(*img.shape[:2], cfg).num_tiles for img in imgs)
+
+
+def phase_engine(pipe):
+    """The per-model engine on its entry point, ``Pipeline(fused=False)``, bf16
+    on the card: the four scenes well formed and identical over two runs;
+    both paths' device seconds and tiles/s on those scenes.  Then f32 with
+    TF32 off: each member's mask equal to the fused path's on one 1024x1024
+    scene, 9 tiles, one chunk of the same tiles on both paths."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu_torch.core.config import TilerConfig
+    from building_detection_tpu_torch.infer.engine import EnsemblePredictor
+    from building_detection_tpu_torch.infer.fused_ensemble import DEFAULT_BATCH_TILES, FusedEnsemblePredictor
+    from building_detection_tpu_torch.infer.pipeline import Pipeline
+
+    imgs = scenes()
+    engine = Pipeline(compute_dtype=torch.bfloat16, seed=SEED, fused=False)
+    check(isinstance(engine.ensemble, EnsemblePredictor), "Pipeline(fused=False) did not build the engine")
+    check(all(p.device.type == "cuda" for p in engine.ensemble.predictors.values()),
+          "the engine's members are not on the card")
+    first, first_s = timed(lambda: engine.predict_images(imgs))
+    again, again_s = timed(lambda: engine.predict_images(imgs))
+    check_results(imgs, first, engine.ensemble.names)
+    for a, b in zip(first, again):
+        for name in a.masks:
+            check((a.masks[name] == b.masks[name]).all(), f"engine {name}: two runs differ")
+        check((a.fused == b.fused).all() and a.corners == b.corners, "engine: two runs differ in fusion/polygons")
+    tiles = scene_tiles(imgs, engine.cfg.tiler)
+    _, engine_s = timed(lambda: [engine.ensemble.predict_masks(img) for img in imgs])
+    fused_masks, fused_s = timed(lambda: pipe.ensemble.predict_masks_many(imgs))
+    diff = {name: sum(int((r.masks[name] != f[name]).sum()) for r, f in zip(first, fused_masks))
+            for name in engine.ensemble.names}
+    say("engine", f"Pipeline(fused=False).predict_images over 4 scenes: {first_s:.2f} s first call, {again_s:.2f} s "
+                  f"second; two runs identical, well formed, blank degenerate scene")
+    say("engine", f"device path over the 4 scenes ({tiles} tiles, bf16): engine {engine_s:.3f} s = "
+                  f"{tiles / engine_s:.2f} tiles/s, fused {fused_s:.3f} s = {tiles / fused_s:.2f} tiles/s; "
+                  f"pixels differing engine vs fused (bf16, other batch shapes) {json.dumps(diff)}")
+    del engine, first, again, fused_masks
+    torch.cuda.empty_cache()
+
+    saved = exact_f32()
+    try:
+        (img,) = [np.random.RandomState(SEED + 7).randint(0, 256, (1024, 1024, 3)).astype(np.uint8)]
+        fused = FusedEnsemblePredictor(seeded_members(SEED), TilerConfig(), DEFAULT_BATCH_TILES, torch.float32)
+        per_model = EnsemblePredictor(seeded_members(SEED), TilerConfig(), DEFAULT_BATCH_TILES, torch.float32)
+        want = fused.predict_masks(img)
+        got = per_model.predict_masks(img)
+        for name in fused.names:
+            check(np.array_equal(got[name], want[name]),
+                  f"f32 engine {name}: {int((got[name] != want[name]).sum())} pixels differ from the fused path")
+        say("engine", f"f32, TF32 off: per-member masks of the engine equal the fused path's on a 1024x1024 scene "
+                      f"(9 tiles, one chunk on both paths); class-1 share "
+                      f"{json.dumps({n: round(float((got[n] > 0).mean()), 4) for n in fused.names})}")
+    finally:
+        restore_backends(saved)
+    del fused, per_model
+    torch.cuda.empty_cache()
+
+
+def phase_blocked(pipe):
+    """A BIG_SCENE^2 scene (121 tiles) through ``Pipeline(max_scene_tiles=64)``,
+    so through the blocked path, against the same scene whole through
+    ``pipe`` (same seeded weights): time, peak device memory, differing
+    pixels per member; the blocked run twice, identical.  Then f32 exact:
+    blocked == whole with one tile a forward on an EXACT_SCENE^2 scene."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu_torch.core.config import TilerConfig
+    from building_detection_tpu_torch.infer import large_scene as LS
+    from building_detection_tpu_torch.infer.engine import TiledPredictor
+    from building_detection_tpu_torch.infer.fused_ensemble import FusedEnsemblePredictor
+    from building_detection_tpu_torch.infer.pipeline import Pipeline
+    from building_detection_tpu_torch.models.registry import init_model
+
+    big = np.random.RandomState(SEED + 8).randint(0, 256, (BIG_SCENE, BIG_SCENE, 3)).astype(np.uint8)
+    blocked = Pipeline(compute_dtype=torch.bfloat16, seed=SEED, max_scene_tiles=64)
+    check(blocked._needs_blocking(big) and not pipe._needs_blocking(big), "the big scene is not routed as planned")
+    n_blocks = len(LS.plan_blocks(BIG_SCENE, BIG_SCENE, blocked.cfg.tiler, blocked.batch_tiles))
+    runs = {}
+    for label, p in (("blocked", blocked), ("whole", pipe), ("blocked again", blocked)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        p.timer.reset()
+        (res,), secs = timed(lambda: p.predict_images([big]))
+        peak = torch.cuda.max_memory_allocated()
+        runs[label] = res
+        for m in list(res.masks.values()) + [res.fused]:
+            check(m.shape == big.shape[:2] and set(np.unique(m).tolist()) <= {0, 255}, f"{label}: mask malformed")
+        stages = {k: round(v["seconds"], 3) for k, v in p.timer.summary().items()}
+        say("blocked", f"{label}: {BIG_SCENE}x{BIG_SCENE} scene in {secs:.2f} s (stages {json.dumps(stages)}); peak "
+                       f"device memory {peak / 2**30:.3f} GiB, {(peak - base) / 2**30:.3f} GiB above the "
+                       f"{base / 2**30:.3f} GiB held before the call"
+                       + (f"; {n_blocks} blocks of <= {blocked.batch_tiles} tiles" if label == "blocked" else ""))
+    a, b, whole = runs["blocked"], runs["blocked again"], runs["whole"]
+    for name in a.masks:
+        check((a.masks[name] == b.masks[name]).all(), f"blocked {name}: two runs differ")
+    check((a.fused == b.fused).all() and a.corners == b.corners, "blocked: two runs differ in fusion/polygons")
+    diff = {name: int((a.masks[name] != whole.masks[name]).sum()) for name in a.masks}
+    say("blocked", f"bf16 pixels differing blocked vs whole (of {BIG_SCENE * BIG_SCENE} per member): "
+                   f"{json.dumps(diff)}; fused mask {int((a.fused != whole.fused).sum())}")
+    del blocked, runs, a, b, whole
+    torch.cuda.empty_cache()
+
+    img = np.random.RandomState(SEED + 9).randint(0, 256, (EXACT_SCENE, EXACT_SCENE, 3)).astype(np.uint8)
+    saved = exact_f32()
+    try:
+        fused = FusedEnsemblePredictor(seeded_members(SEED), TilerConfig(), 1, torch.float32)
+        want = fused.predict_masks(img)
+        got = LS.predict_masks_blocked(fused, img, max_block_tiles=9)
+        for name in fused.names:
+            check(np.array_equal(got[name], want[name]),
+                  f"f32 blocked {name}: {int((got[name] != want[name]).sum())} pixels differ from the whole scene")
+        one = TiledPredictor(init_model("res34", torch.Generator().manual_seed(SEED)), TilerConfig(), 1, torch.float32)
+        check(np.array_equal(LS.predict_mask_blocked(one, img, max_block_tiles=9), one.predict_mask(img)),
+              "f32 blocked res34 (TiledPredictor) differs from its whole-scene mask")
+        say("blocked", f"f32, TF32 off, deterministic, batch_tiles=1: {EXACT_SCENE}x{EXACT_SCENE} scene (36 tiles, "
+                       f"blocks of 9): predict_masks_blocked == predict_masks for all 5 members, "
+                       f"predict_mask_blocked == predict_mask for res34")
+    finally:
+        restore_backends(saved)
+    del fused, one
+    torch.cuda.empty_cache()
+
+
+def port_env(here: str) -> dict:
+    return dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def run_cli(here: str, module: str, args, tag: str):
+    """Run ``python -m building_detection_tpu_torch.cli.<module>`` to its end;
+    returns (stdout, seconds)."""
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", f"building_detection_tpu_torch.cli.{module}", *args], cwd=here,
+                          env=port_env(here), capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    check(done.returncode == 0, f"{tag} exited {done.returncode}: {done.stderr[-3000:]}")
+    return done.stdout, secs
+
+
+def tree(root: str) -> dict:
+    """{relative path: bytes} of every file under ``root``."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(dirpath, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(dirpath, f), root)] = fh.read()
+    return out
+
+
+def phase_predict_cli(here: str, work: str):
+    """``bdt-predict`` on its default device over a directory of four PNG
+    scenes with ``--keep-intermediates``; then the same directory in two
+    shards run side by side, whose union equals the single run file for
+    file.  The two 1024^2 scenes share a shard (crc32 of their names), so
+    every scene meets the same batch shapes as in the single run."""
+    import numpy as np
+    from PIL import Image
+
+    from building_detection_tpu_torch.cli.predict import shard_of
+
+    scene_dir = os.path.join(work, "scenes")
+    os.makedirs(scene_dir)
+    rng = np.random.RandomState(SEED + 10)
+    for name, (h, w) in CLI_SCENES.items():
+        Image.fromarray(rng.randint(0, 256, (h, w, 3)).astype(np.uint8)).save(os.path.join(scene_dir, f"{name}.png"))
+    check(shard_of("a.png", 2) == shard_of("b.png", 2), "the two 1024^2 scenes fall in different shards")
+    single = os.path.join(work, "single")
+    stdout, secs = run_cli(here, "predict", ["--image-dir", scene_dir, "--out", single, "--keep-intermediates"],
+                           "bdt-predict")
+    lines = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+    check(len(lines) == len(CLI_SCENES), f"bdt-predict printed {len(lines)} JSON lines for {len(CLI_SCENES)} scenes")
+    members = ("res34", "hrnet", "v3plus", "scse", "bam")
+    for name, (h, w) in CLI_SCENES.items():
+        files = set(os.listdir(os.path.join(single, name)))
+        check(files == {f"{name}_result.png", f"{name}.txt"} | {f"{m}_{name}.png" for m in members},
+              f"bdt-predict wrote {sorted(files)} for scene {name}")
+        with Image.open(os.path.join(single, name, f"{name}_result.png")) as im:
+            result = np.asarray(im)
+        check(result.shape == (h, w), f"scene {name}: result {result.shape}")
+        if (h, w) == (100, 100):
+            check(not result.any(), "the 100x100 scene (no tile) is not blank")
+    say("predict-cli", f"one process over {len(CLI_SCENES)} scenes: {secs:.1f} s wall, the contract files and one "
+                       f"JSON line per scene; the 100x100 scene blank")
+    fleet = os.path.join(work, "fleet")
+    cmd = [sys.executable, "-m", "building_detection_tpu_torch.cli.predict", "--image-dir", scene_dir, "--out", fleet,
+           "--keep-intermediates", "--num-processes", "2"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--process-id", str(i)], cwd=here, env=port_env(here),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=CLI_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for i, (p, (_, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"bdt-predict shard {i} exited {p.returncode}: {err[-3000:]}")
+    check(tree(fleet) == tree(single), "the two shards' union differs from the single run")
+    say("predict-cli", f"two shards side by side: {secs:.1f} s wall; their union equals the single run, file for file")
+
+
+def multipart(filename: str, payload: bytes):
+    boundary = "bdtsmoke" + os.urandom(8).hex()
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; filename=\"{filename}\"\r\n"
+            f"Content-Type: image/png\r\n\r\n").encode() + payload + f"\r\n--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def phase_serve_cli(here: str, work: str):
+    """``bdt-serve --port 0`` on its default device: read the bound port,
+    ``GET /health``, three PNG ``POST /photo`` requests, then SIGTERM: the
+    process prints its drain line and exits 0."""
+    import http.client
+    import io
+    import queue
+    import signal
+    import threading
+
+    import numpy as np
+    from PIL import Image
+
+    cmd = [sys.executable, "-u", "-m", "building_detection_tpu_torch.cli.serve", "--host", "127.0.0.1", "--port", "0",
+           "--root-dir", work]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, env=port_env(here), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines: "queue.Queue" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout] + [lines.put(None)], daemon=True).start()
+    log = []
+
+    def read_until(pred, timeout: float):
+        end = time.monotonic() + timeout
+        while time.monotonic() < end:
+            try:
+                line = lines.get(timeout=max(end - time.monotonic(), 0.01))
+            except queue.Empty:
+                break
+            if line is None:
+                break
+            log.append(line.rstrip())
+            if pred(line):
+                return line
+        return None
+
+    try:
+        line = read_until(lambda s: s.startswith("serving on "), CLI_TIMEOUT_S)
+        check(line is not None, f"bdt-serve never printed its address: {log[-20:]}")
+        port = int(line.rsplit(":", 1)[1])
+        ready_s = time.perf_counter() - t0
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request("GET", "/health")
+        health = conn.getresponse()
+        check(health.status == 200, f"GET /health answered {health.status}")
+        health.read()
+        rng = np.random.RandomState(SEED + 11)
+        times = []
+        for i in range(3):
+            buf = io.BytesIO()
+            Image.fromarray(rng.randint(0, 256, (600, 800, 3)).astype(np.uint8)).save(buf, format="PNG")
+            body, ctype = multipart(f"scene{i}.png", buf.getvalue())
+            t1 = time.perf_counter()
+            conn.request("POST", "/photo", body=body, headers={"Content-Type": ctype, "clientID": "smoke"})
+            answer = json.loads(conn.getresponse().read())
+            times.append(time.perf_counter() - t1)
+            check(answer["status"] == "success", f"POST /photo answered {answer['status']}: {answer['error']}")
+        conn.close()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=CLI_TIMEOUT_S)
+        read_until(lambda s: False, 10)
+        check(rc == 0, f"bdt-serve exited {rc} after SIGTERM: {log[-20:]}")
+        check(any(s.startswith("drained") for s in log), f"bdt-serve printed no drain line: {log[-20:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    say("serve-cli", f"bdt-serve ready (warmed up, bound to port {port}) {ready_s:.1f} s after start; /health 200; "
+                     f"3 POST /photo success in {' / '.join(f'{t:.2f}' for t in times)} s; SIGTERM: "
+                     f"{[s for s in log if s.startswith(('signal', 'drained'))]}, exit 0")
+
+
+def phase_augment_cli(here: str, work: str):
+    """``bdt-augment`` over four 512^2 PNG pairs with ``--split-dir`` (host only)."""
+    import numpy as np
+    from PIL import Image
+
+    imgs, labs = os.path.join(work, "img"), os.path.join(work, "lab")
+    os.makedirs(imgs)
+    os.makedirs(labs)
+    rng = np.random.RandomState(SEED + 12)
+    for i in range(4):
+        Image.fromarray(rng.randint(0, 256, (512, 512, 3)).astype(np.uint8)).save(os.path.join(imgs, f"{i}.png"))
+        lab = ((labels_np(SEED + 20 + i, (1, 512, 512))[0] > 0) * 255).astype(np.uint8)
+        Image.fromarray(lab).save(os.path.join(labs, f"{i}.png"))
+    out_i, out_l, split = (os.path.join(work, d) for d in ("aug_img", "aug_lab", "split"))
+    stdout, secs = run_cli(here, "augment", ["--images", imgs, "--labels", labs, "--out-images", out_i,
+                                             "--out-labels", out_l, "--split-dir", split, "--seed", str(SEED)],
+                           "bdt-augment")
+    n = len(os.listdir(out_i))
+    split_n = sum(len(os.listdir(os.path.join(split, d, "images"))) for d in ("train", "val"))
+    check(n >= 4 and n == len(os.listdir(out_l)) == split_n, f"bdt-augment wrote {n} pairs, split {split_n}")
+    say("augment-cli", f"{n} pairs from 4 and the split in {secs:.1f} s wall: {stdout.strip().splitlines()[-1]}")
+
+
 def train_batch(seed: int, n: int, px: int):
     """A learnable uint8 batch: dark noisy ground, bright blobs where the
     label is 255 (numpy only)."""
@@ -424,9 +788,7 @@ def phase_train_parity():
 
     cfg = TrainConfig(batch_size=2, image_size=TRAIN_PARITY_PX, epochs=1, warmup_epochs=1)
     imgs, labs = train_batch(SEED + 4, 2, TRAIN_PARITY_PX)
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    saved = exact_f32()
     try:
         for i, name in enumerate(ENSEMBLE_ORDER):
             runs = {}
@@ -447,7 +809,7 @@ def phase_train_parity():
             check(dp <= TRAIN_PARAM_ATOL, f"{name}: params after one step differ by {dp}")
             check(ds <= TRAIN_STATE_ATOL, f"{name}: BN moving statistics after one step differ")
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        restore_backends(saved)
 
 
 def phase_train_full():
@@ -562,9 +924,18 @@ def main() -> int:
     check(pipe.ensemble.device.type == "cuda", f"Pipeline() runs on {pipe.ensemble.device}, not the card")
     launches = phase_main_path(pipe)
     phase_serving(pipe)
+    phase_engine(pipe)
+    phase_blocked(pipe)
     phase_sweep(pipe)
     del pipe
     torch.cuda.empty_cache()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=here) as work:
+        for phase in (phase_predict_cli, phase_serve_cli, phase_augment_cli):
+            sub = os.path.join(work, phase.__name__)
+            os.makedirs(sub)
+            phase(here, sub)
     phase_train_parity()
     train_launches = phase_train_full()
     launches["edge_weight_maps"] += train_launches

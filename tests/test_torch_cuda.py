@@ -1,6 +1,7 @@
 """PyTorch port on a CUDA card: the edge-weight kernel against its plain twin,
-``normalize``, the fused predictor on the card against the CPU, and a
-full-width ``Trainer`` step, which launches the kernel once.
+``normalize``, the fused predictor, the per-model engine and the blocked
+path on the card against the CPU, and a full-width ``Trainer`` step, which
+launches the kernel once.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -121,6 +122,34 @@ def test_fused_predictor_on_card_matches_cpu(cuda):
     for g, w in zip(got, want):
         for name in NAMES:
             np.testing.assert_array_equal(g[name], w[name])
+
+
+@pytest.mark.cuda
+def test_engine_and_blocked_path_on_card_match_cpu(cuda):
+    """The per-model engine and the blocked path on the card, f32 with TF32
+    off, against the engine on the CPU: every dispatch runs one tile, so
+    batch shapes are equal everywhere."""
+    from building_detection_tpu_torch.infer import large_scene as LS
+    from building_detection_tpu_torch.infer.engine import EnsemblePredictor
+
+    cfg = TilerConfig(tile=64, stride=48, overlap=16)
+    imgs = scenes(7, [(200, 260), (150, 140), (10, 12)])
+    want = EnsemblePredictor(tiny_members(), cfg, 1, torch.float32, "cpu")
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = EnsemblePredictor(tiny_members(), cfg, 1, torch.float32, cuda)
+        for img in imgs:
+            w = want.predict_masks(img)
+            for g in (got.predict_masks(img), LS.predict_masks_blocked(got, img, max_block_tiles=4)):
+                for name in NAMES:
+                    np.testing.assert_array_equal(g[name], w[name])
+        np.testing.assert_array_equal(
+            LS.predict_mask_blocked(got.predictors["m0"], imgs[0], max_block_tiles=2, max_in_flight=3),
+            want.predictors["m0"].predict_mask(imgs[0]),
+        )
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
 @pytest.mark.cuda

@@ -4,12 +4,15 @@ JAX package, and its entry points run on the card unless asked for the CPU.
 * In a subprocess that blocks ``jax``, ``PIL``, ``cv2`` and
   ``building_detection_tpu`` itself, every module of the port imports, and
   ``make_targets``, a ``Pipeline`` over tiny members (fusion and polygons
-  included), the geometry on both of its paths and a ``Trainer`` (augmented
-  steps, the staged epoch, save and restore) run end to end on the CPU.
+  included), the geometry on both of its paths, a ``Trainer`` (augmented
+  steps, the staged epoch, save and restore), the per-model engine and the
+  blocked path, and the predict, serve and augment CLIs as far as they need
+  no image file, run end to end on the CPU.
 * No file of the port, and not ``chip_smoke.py``, imports the JAX package
   (an AST scan, which also sees imports inside functions).
-* ``Pipeline()``, ``FusedEnsemblePredictor`` and ``Trainer`` with no device
-  argument ask for the card, and raise where torch sees none.
+* ``Pipeline()``, ``FusedEnsemblePredictor``, ``Trainer``,
+  ``TiledPredictor``, ``EnsemblePredictor`` and the predict and serve CLIs
+  with no device argument ask for the card, and raise where torch sees none.
 """
 import ast
 import os
@@ -93,6 +96,44 @@ SCRIPT = textwrap.dedent(
         again = Trainer(Tiny, cfg, steps_per_epoch=2, augment=True, seed=1, device="cpu")
         again.restore(os.path.join(d, "t.npz"))
         assert again.step == 2 and again.optimizer.count == 2
+    from building_detection_tpu_torch.infer import large_scene as LS
+    from building_detection_tpu_torch.infer.engine import EnsemblePredictor, TiledPredictor
+
+    cfg = Config(tiler=TilerConfig(tile=32, stride=24, overlap=8))
+    engine = Pipeline(models=(), cfg=cfg, batch_tiles=4, compute_dtype=torch.float32, device="cpu", fused=False,
+                      max_scene_tiles=6)
+    engine.ensemble = EnsemblePredictor(
+        {n: init_layers(L.Conv2d(Namer(), 3, 2, 3, activation="softmax").eval(), torch.Generator().manual_seed(i))
+         for i, n in enumerate(["m0", "m1", "m2", "m3", "m4"])},
+        cfg.tiler, 4, torch.float32, "cpu",
+    )
+    big = np.random.RandomState(3).randint(0, 256, (130, 150, 3), np.uint8)
+    (blocked, small) = engine.predict_images([big, img])
+    assert blocked.fused.shape == (130, 150) and small.fused.shape == (70, 100)
+    whole = engine.ensemble.predict_masks(big)
+    assert all((blocked.masks[n] == whole[n]).all() for n in whole)
+    one = TiledPredictor(init_layers(L.Conv2d(Namer(), 3, 2, 3, activation="softmax").eval(),
+                                     torch.Generator().manual_seed(9)), cfg.tiler, 4, torch.float32, "cpu")
+    assert (LS.predict_mask_blocked(one, big, max_block_tiles=4) == one.predict_mask(big)).all()
+
+    from building_detection_tpu_torch.cli import augment as augment_cli
+    from building_detection_tpu_torch.cli import predict as predict_cli
+    from building_detection_tpu_torch.cli import serve as serve_cli
+    from building_detection_tpu_torch.serve import server
+
+    with tempfile.TemporaryDirectory() as d:
+        for sub in ("img", "lab"):
+            os.mkdir(os.path.join(d, sub))
+        assert predict_cli.main(["--image-dir", os.path.join(d, "img"), "--out", d, "--device", "cpu"]) == 2
+        assert predict_cli.main(["--image", "x.png", "--out", d, "--int8"]) == 2
+        assert augment_cli.main(["--images", os.path.join(d, "img"), "--labels", os.path.join(d, "lab"),
+                                 "--out-images", os.path.join(d, "oi"), "--out-labels", os.path.join(d, "ol"),
+                                 "--split-dir", os.path.join(d, "split"), "--seed", "0"]) == 0
+        served = []
+        server.serve = lambda pipe, cfg, **kw: served.append((pipe, cfg, kw))
+        assert serve_cli.main(["--port", "0", "--root-dir", d, "--device", "cpu"]) == 0
+        (pipe, cfg, kw), = served
+        assert pipe.ensemble.names == ["res34", "hrnet", "v3plus", "scse", "bam"] and kw["port"] == 0
     for mod in ("jax", "PIL", "cv2", "building_detection_tpu"):
         assert sys.modules[mod] is None, mod
     assert not [m for m in sys.modules if m.startswith("building_detection_tpu.")]
@@ -135,12 +176,20 @@ def test_the_scan_sees_a_jax_package_import(tmp_path):
     assert list(imported_modules(probe)) == ["building_detection_tpu.post", "building_detection_tpu"]
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from building_detection_tpu_torch.cli import predict as predict_cli
+    from building_detection_tpu_torch.cli import serve as serve_cli
+    from building_detection_tpu_torch.infer.engine import EnsemblePredictor, TiledPredictor
     from building_detection_tpu_torch.infer.fused_ensemble import FusedEnsemblePredictor
     from building_detection_tpu_torch.infer.pipeline import Pipeline
     from building_detection_tpu_torch.train.trainer import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for make in (lambda: Pipeline(), lambda: FusedEnsemblePredictor({}), lambda: Trainer("res34")):
+    for make in (
+        lambda: Pipeline(), lambda: FusedEnsemblePredictor({}), lambda: Trainer("res34"),
+        lambda: TiledPredictor(torch.nn.Identity()), lambda: EnsemblePredictor({}),
+        lambda: predict_cli.main(["--image", str(tmp_path / "x.png"), "--out", str(tmp_path)]),
+        lambda: serve_cli.main(["--port", "0", "--root-dir", str(tmp_path)]),
+    ):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             make()

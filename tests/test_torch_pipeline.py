@@ -116,18 +116,28 @@ def test_loads_jax_checkpoints(tmp_path):
 
 
 def test_later_features_are_refused(port, tmp_path):
-    with pytest.raises(NotImplementedError, match="engine"):
-        Pipeline(models=(), fused=False, device="cpu")
+    """``.h5`` weights and int8 are still refused; ``fused=False`` (the
+    per-model engine) and scenes over ``max_scene_tiles`` (the blocked
+    path) now work and give the fused whole-scene masks."""
     with pytest.raises(NotImplementedError, match="int8"):
         Pipeline(models=(), int8_pointwise=True, device="cpu")
     with pytest.raises(NotImplementedError, match=".h5"):
         Pipeline({"scse": str(tmp_path / "scse.h5")}, models=("scse",), device="cpu")
-    port.max_scene_tiles = 4
+    from building_detection_tpu_torch.infer.engine import EnsemblePredictor
+
+    engine = Pipeline(models=("scse",), cfg=CFG, compute_dtype=torch.float32, device="cpu", fused=False)
+    assert isinstance(engine.ensemble, EnsemblePredictor) and engine.ensemble.names == ["scse"]
+    imgs = scenes(4, [(200, 260)])
+    (want,) = port.predict_images(imgs)
+    port.max_scene_tiles, port.batch_tiles = 4, 4  # blocks of 4 of the scene's 24 tiles
     try:
-        with pytest.raises(NotImplementedError, match="large-scene"):
-            port.predict_images(scenes(4, [(200, 260)]))
+        assert port._needs_blocking(imgs[0])
+        (got,) = port.predict_images(imgs)
     finally:
-        port.max_scene_tiles = 1024
+        port.max_scene_tiles, port.batch_tiles = 1024, 32
+    for name in NAMES:
+        np.testing.assert_array_equal(got.masks[name], want.masks[name])
+    assert got.corners == want.corners
 
 
 def test_discover_weights_matches_jax(tmp_path):
