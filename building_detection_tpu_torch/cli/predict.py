@@ -59,7 +59,11 @@ def build_parser() -> argparse.ArgumentParser:
         "3-of-5 vote (faster; NOT mask-parity)",
     )
     p.add_argument("--config", help="JSON config overriding the reference constants")
-    p.add_argument("--int8", action="store_true", help="int8 pointwise convs: slice 3 of the port, refused")
+    p.add_argument(
+        "--int8", action="store_true",
+        help="opt-in int8 pointwise convs at >= 512 input channels (torch._int_mm on the card), "
+        "calibrated on the first two scenes (of this shard); NOT mask-parity",
+    )
     p.add_argument(
         "--bucket", action="store_true",
         help="bucket canvas shapes so mixed scene sizes share dispatch shapes (bit-identical output)",
@@ -87,9 +91,6 @@ def shard_of(path: str, num_processes: int) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.int8:
-        print("--int8 (int8 pointwise convs) is slice 3 of the port, not ported", file=sys.stderr)
-        return 2
     import dataclasses
 
     import torch
@@ -139,6 +140,10 @@ def main(argv=None) -> int:
         batch_tiles=args.batch_tiles or DEFAULT_BATCH_TILES,
         compute_dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
         device=args.device,
+        # 512 input channels: the Xception projections, as in the JAX CLI
+        int8_pointwise=512 if args.int8 else False,
+        # the first scenes double as the int8 calibration set
+        int8_calibration=[uio.imread_rgb(p) for p in images[:2]] if args.int8 else None,
     )
 
     def predict_chunk(arrays):

@@ -11,7 +11,7 @@ requests in flight (at most ``--drain-timeout`` seconds) and exits 0.
 from __future__ import annotations
 
 import argparse
-import sys
+import os
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,19 +37,27 @@ def build_parser() -> argparse.ArgumentParser:
         help="disable bucketed canvas shapes (bucketing lets mixed upload sizes share "
         "dispatch shapes; output is bit-identical)",
     )
-    p.add_argument("--int8", action="store_true", help="int8 pointwise convs: slice 3 of the port, refused")
-    p.add_argument("--int8-scales", help="int8 calibration scales: slice 3 of the port, refused")
-    p.add_argument("--int8-calibration-dir", help="int8 calibration images: slice 3 of the port, refused")
+    p.add_argument(
+        "--int8", action="store_true",
+        help="opt-in int8 pointwise convs at >= 512 input channels (torch._int_mm on the card); "
+        "NOT mask-parity",
+    )
+    p.add_argument(
+        "--int8-scales",
+        help="JSON calibration scales (pipeline.save_int8_scales, of either package); with --int8 "
+        "but no scales, every site takes a dynamic per-call scale",
+    )
+    p.add_argument(
+        "--int8-calibration-dir",
+        help="directory of representative images to calibrate on at startup (the first four; "
+        "alternative to --int8-scales)",
+    )
     p.add_argument("--device", default="cuda", help="torch device to serve from (no fallback)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.int8 or args.int8_scales or args.int8_calibration_dir:
-        print("--int8, --int8-scales and --int8-calibration-dir are slice 3 of the port, not ported",
-              file=sys.stderr)
-        return 2
     import dataclasses
 
     import torch
@@ -57,20 +65,31 @@ def main(argv=None) -> int:
     from building_detection_tpu_torch.core.config import Config, ServeConfig, TilerConfig
     from building_detection_tpu_torch.core.device import check_device
     from building_detection_tpu_torch.infer.fused_ensemble import DEFAULT_BATCH_TILES
-    from building_detection_tpu_torch.infer.pipeline import Pipeline, discover_weights
+    from building_detection_tpu_torch.infer.pipeline import Pipeline, discover_weights, load_int8_scales
     from building_detection_tpu_torch.serve import server
+    from building_detection_tpu_torch.utils import io as uio
 
     check_device(torch.device(args.device))
     serve_cfg = ServeConfig()
     if args.drain_timeout is not None:
         serve_cfg = dataclasses.replace(serve_cfg, drain_timeout_s=args.drain_timeout)
     cfg = Config(tiler=TilerConfig(bucket_sizes=not args.no_bucket), serve=serve_cfg)
+    int8_scales = int8_calibration = None
+    if args.int8 and args.int8_scales:
+        int8_scales = load_int8_scales(args.int8_scales)
+    elif args.int8 and args.int8_calibration_dir:
+        names = [f for f in sorted(os.listdir(args.int8_calibration_dir))
+                 if f.lower().endswith((".png", ".jpg", ".jpeg", ".tif", ".tiff"))]
+        int8_calibration = [uio.imread_rgb(os.path.join(args.int8_calibration_dir, f)) for f in names[:4]]
     pipe = Pipeline(
         weights=discover_weights(args.weights_dir) if args.weights_dir else {},
         cfg=cfg,
         batch_tiles=args.batch_tiles or DEFAULT_BATCH_TILES,
         compute_dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
         device=args.device,
+        int8_pointwise=512 if args.int8 else False,
+        int8_calibration=int8_calibration,
+        int8_scales=int8_scales,
     )
     print("模型加载完成 (models loaded)", flush=True)
     server.serve(pipe, cfg, root_dir=args.root_dir, host=args.host, port=args.port)

@@ -17,8 +17,9 @@ strictly: every JAX key is used once and every port tensor is filled.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -110,9 +111,16 @@ class KerasLayer(nn.Module):
     is used, as the JAX ``Scope.param`` does, so the stored parameters stay
     f32 and their gradients land there.  ``None`` computes in the
     parameters' own dtype (serving, after :func:`cast_params`).
+
+    ``int8_pointwise``, ``int8_scale`` and ``int8_amax`` are the int8
+    serving opt-in of the conv layers (:func:`set_int8`,
+    :func:`calibrate_int8`); they are off unless set.
     """
 
     compute_dtype: Optional[torch.dtype] = None
+    int8_pointwise: Union[bool, int] = False
+    int8_scale: Optional[float] = None
+    int8_amax: Optional[Dict[str, torch.Tensor]] = None
 
     def __init__(self, namer: Namer, kind: str, name: Optional[str]):
         super().__init__()
@@ -248,6 +256,83 @@ def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]) -> nn.Modu
     for layer in model.modules():
         if isinstance(layer, KerasLayer):
             layer.compute_dtype = dtype
+    return model
+
+
+def set_int8(
+    model: nn.Module,
+    int8_pointwise: Union[bool, int] = False,
+    int8_scales: Optional[Mapping[str, float]] = None,
+) -> nn.Module:
+    """Opt ``model`` into int8 pointwise convs for inference, as the JAX
+    package's ``apply(..., int8_pointwise=, int8_scales=)`` does per call.
+
+    ``int8_pointwise`` is ``True`` (every 1x1 conv and separable pointwise
+    step) or a minimum input-channel count (``512`` keeps the Xception
+    projections only); ``False`` turns it off.  ``int8_scales`` maps site
+    names (layer names, so either package's scale JSON serves the other) to
+    calibrated activation amax; a site without one takes its tensor's own
+    max on every call.  Train mode never quantizes.
+    """
+    for layer in model.modules():
+        if isinstance(layer, KerasLayer):
+            layer.int8_pointwise = int8_pointwise
+            layer.int8_scale = None if int8_scales is None else int8_scales.get(layer.jax_name)
+    return model
+
+
+@contextlib.contextmanager
+def recording_int8_amax(model: nn.Module) -> Iterator[Dict[str, torch.Tensor]]:
+    """While open, every active int8 site of ``model`` records the running
+    max of its activations' ``|x|`` (a 0-d f32 tensor on the model's device)
+    into the dict this yields."""
+    amax: Dict[str, torch.Tensor] = {}
+    layers = [m for m in model.modules() if isinstance(m, KerasLayer)]
+    for layer in layers:
+        layer.int8_amax = amax
+    try:
+        yield amax
+    finally:
+        for layer in layers:
+            del layer.int8_amax
+
+
+@torch.no_grad()
+def calibrate_int8(
+    model: nn.Module,
+    batches: Iterable[torch.Tensor],
+    *,
+    int8_pointwise: Union[bool, int] = True,
+) -> Dict[str, float]:
+    """Per-site activation amax for the int8 pointwise path: the
+    counterpart of the JAX ``calibrate_int8``.
+
+    Runs the eval-mode ``model`` over ``batches`` (inputs normalized as
+    inference normalizes them, on the model's device and in its compute
+    dtype) with int8 on at ``int8_pointwise`` and dynamic scales, and
+    returns ``{site: max |activation|}`` over all batches: the
+    ``int8_scales`` to serve with.  ``int8_pointwise`` should be the flag
+    inference will use, so the recorded sites are the active ones.  The
+    model's own int8 settings are restored afterwards.
+    """
+    layers = [m for m in model.modules() if isinstance(m, KerasLayer)]
+    saved = [(m.int8_pointwise, m.int8_scale) for m in layers]
+    set_int8(model, int8_pointwise, None)
+    try:
+        with recording_int8_amax(model) as amax:
+            for x in batches:
+                model(x)
+    finally:
+        for m, (flag, scale) in zip(layers, saved):
+            m.int8_pointwise, m.int8_scale = flag, scale
+    return {site: float(v) for site, v in amax.items()}
+
+
+def set_remat(model: nn.Module, on: bool = True) -> nn.Module:
+    """Rematerialise ``model``'s stages in training (the JAX
+    ``Trainer(remat=True)``): see :func:`nn.layers.stage`."""
+    for m in model.modules():
+        m.remat = on
     return model
 
 

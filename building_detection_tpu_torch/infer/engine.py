@@ -26,7 +26,7 @@ from torch import nn
 
 from building_detection_tpu_torch.core.config import TilerConfig
 from building_detection_tpu_torch.core.device import check_device
-from building_detection_tpu_torch.core.module import cast_params
+from building_detection_tpu_torch.core.module import cast_params, set_int8
 from building_detection_tpu_torch.infer.fused_ensemble import DEFAULT_BATCH_TILES, fetch_pinned, upload_pinned
 from building_detection_tpu_torch.ops import tiling as T
 
@@ -40,8 +40,10 @@ class TiledPredictor:
     tile, 2)`` softmax.  The predictor takes ownership: it moves the model
     to ``device`` (the card by default; a card that is not there raises,
     nothing falls back) and casts its parameters to ``compute_dtype``.
-    ``mesh``, ``tp`` and int8 pointwise convs are the JAX package's
-    multi-device and int8 options, refused here.
+    ``int8_pointwise`` and ``int8_scales`` (``{site: amax}``) opt it into
+    int8 pointwise convs (:func:`core.module.set_int8`): NOT mask-parity.
+    ``mesh`` and ``tp``, the JAX package's multi-device options, are
+    refused here.
     """
 
     def __init__(
@@ -58,11 +60,9 @@ class TiledPredictor:
     ):
         if mesh is not None or tp:
             raise NotImplementedError(f"tile data parallelism and channel TP are {_SLICE_3}")
-        if int8_pointwise or int8_scales:
-            raise NotImplementedError(f"int8 pointwise convs are {_SLICE_3}")
         self.device = torch.device(device)
         check_device(self.device)
-        self.model = cast_params(model.to(self.device).eval(), compute_dtype)
+        self.model = set_int8(cast_params(model.to(self.device).eval(), compute_dtype), int8_pointwise, int8_scales)
         self.cfg = cfg
         self.batch_tiles = batch_tiles
         self.compute_dtype = compute_dtype
@@ -153,7 +153,8 @@ class TiledPredictor:
 class EnsemblePredictor:
     """The five members of the reference (`predict.py:75-87`), each a
     :class:`TiledPredictor` on ``device``; per-model masks in the members'
-    order.  Each member module is owned (moved and cast) by its predictor.
+    order.  Each member module is owned (moved and cast) by its predictor;
+    ``int8_scales`` is ``{member: {site: amax}}``.
     """
 
     def __init__(
@@ -171,11 +172,13 @@ class EnsemblePredictor:
             if len(devices) > 1:
                 raise NotImplementedError(f"ensemble model parallelism over several devices is {_SLICE_3}")
             device = devices[0] if devices else device
-        if int8_pointwise or int8_scales:
-            raise NotImplementedError(f"int8 pointwise convs are {_SLICE_3}")
         check_device(torch.device(device))
         self.predictors = {
-            name: TiledPredictor(model, cfg, batch_tiles, compute_dtype, device) for name, model in members.items()
+            name: TiledPredictor(
+                model, cfg, batch_tiles, compute_dtype, device,
+                int8_pointwise=int8_pointwise, int8_scales=(int8_scales or {}).get(name),
+            )
+            for name, model in members.items()
         }
         self.names = list(self.predictors)
         self.cfg = cfg

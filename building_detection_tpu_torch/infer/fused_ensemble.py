@@ -14,7 +14,7 @@ vote of ``bdt-predict --fast-vote``.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +22,7 @@ from torch import nn
 
 from building_detection_tpu_torch.core.config import TilerConfig
 from building_detection_tpu_torch.core.device import check_device
-from building_detection_tpu_torch.core.module import cast_params
+from building_detection_tpu_torch.core.module import cast_params, set_int8
 from building_detection_tpu_torch.ops import tiling as T
 
 # Tiles per dispatch.  Chosen from the batch sweep of ``chip_smoke.py`` on
@@ -86,7 +86,9 @@ class FusedEnsemblePredictor:
     ``members`` maps name -> model (``(B, H, W, 3)`` -> ``(B, H, W, 2)``
     softmax).  The predictor takes ownership: it moves each model to
     ``device`` (the card by default; a card that is not there raises) and
-    casts its parameters to ``compute_dtype``.
+    casts its parameters to ``compute_dtype``.  ``int8_pointwise`` and
+    ``int8_scales`` (``{member: {site: amax}}``) opt the members into int8
+    pointwise convs (:func:`core.module.set_int8`): NOT mask-parity.
     """
 
     # Scene-group sizes: quantizing bounds the shapes a serving batcher
@@ -100,12 +102,16 @@ class FusedEnsemblePredictor:
         batch_tiles: int = DEFAULT_BATCH_TILES,
         compute_dtype: torch.dtype = torch.bfloat16,
         device="cuda",
+        int8_pointwise=False,
+        int8_scales: Optional[Dict[str, Dict[str, float]]] = None,
     ):
         self.device = torch.device(device)
         check_device(self.device)
         self.names = list(members)
         self.models = {
-            n: cast_params(m.to(self.device).eval(), compute_dtype) for n, m in members.items()
+            n: set_int8(cast_params(m.to(self.device).eval(), compute_dtype), int8_pointwise,
+                        (int8_scales or {}).get(n))
+            for n, m in members.items()
         }
         self.cfg = cfg
         self.batch_tiles = batch_tiles

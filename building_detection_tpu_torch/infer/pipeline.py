@@ -13,6 +13,7 @@ copies of the JAX package's host code (``post/fusion.py``,
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Dict, List, Optional
 
@@ -21,7 +22,7 @@ import torch
 
 from building_detection_tpu_torch.core.config import Config
 from building_detection_tpu_torch.core.device import check_device
-from building_detection_tpu_torch.core.module import load_jax_variables
+from building_detection_tpu_torch.core.module import calibrate_int8, jax_variables, load_jax_variables, set_int8
 from building_detection_tpu_torch.infer.engine import EnsemblePredictor
 from building_detection_tpu_torch.infer.fused_ensemble import (
     DEFAULT_BATCH_TILES,
@@ -32,9 +33,79 @@ from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER, build_m
 from building_detection_tpu_torch.ops import tiling as T
 from building_detection_tpu_torch.post import edges as E
 from building_detection_tpu_torch.post import fusion as F
-from building_detection_tpu_torch.train.checkpoint import load_variables
+from building_detection_tpu_torch.train.checkpoint import import_h5_weights, load_variables
 from building_detection_tpu_torch.utils import io as uio
 from building_detection_tpu_torch.utils.profiling import StageTimer
+
+
+def _calibration_tiles(scenes: List[np.ndarray], cfg: Config, max_tiles: int) -> np.ndarray:
+    """``(N, tile, tile, 3)`` uint8 calibration tiles cut from RGB scenes
+    with the inference tiler's geometry (`predict.py:98-106`)."""
+    tile = cfg.tiler.tile
+    out: List[np.ndarray] = []
+    for img in scenes:
+        h, w = img.shape[:2]
+        plan = T.plan_tiles(h, w, cfg.tiler)
+        canvas = np.zeros((plan.canvas_h, plan.canvas_w, 3), np.uint8)
+        canvas[:h, :w] = img
+        for oy, ox in plan.origins:
+            out.append(canvas[oy : oy + tile, ox : ox + tile])
+            if len(out) >= max_tiles:
+                return np.stack(out)
+    if not out:
+        raise ValueError("int8 calibration needs at least one scene")
+    return np.stack(out)
+
+
+def calibrate_members_int8(
+    members: Dict[str, torch.nn.Module],
+    scenes: List[np.ndarray],
+    cfg: Config = Config(),
+    compute_dtype: torch.dtype = torch.bfloat16,
+    int8_pointwise=True,
+    max_tiles: int = 32,
+    chunk: int = 8,
+) -> Dict[str, Dict[str, float]]:
+    """``{member: {site: amax}}`` over tiles of representative scenes, for
+    the predictors' ``int8_scales`` (the JAX function of the same name).
+
+    Tiles are cut and normalized to ``compute_dtype`` as inference does, in
+    chunks of ``chunk`` (the last padded by repeating the first tiles), and
+    go through each eval-mode member on its own device; the members should
+    compute in ``compute_dtype`` (as the predictors leave them).
+    ``int8_pointwise`` must be the inference flag, so the calibrated sites
+    are the active ones.
+    """
+    tiles = _calibration_tiles(scenes, cfg, max_tiles)
+    n = tiles.shape[0]
+    chunk = min(chunk, n)
+    pad = (-n) % chunk
+    if pad:
+        tiles = np.concatenate([tiles, tiles[:pad]], axis=0)
+    scales: Dict[str, Dict[str, float]] = {}
+    for name, model in members.items():
+        device = next(model.parameters()).device
+        batches = (
+            T.normalize(torch.from_numpy(tiles[i : i + chunk]).to(device), cfg.tiler, dtype=compute_dtype)
+            for i in range(0, tiles.shape[0], chunk)
+        )
+        scales[name] = calibrate_int8(model.eval(), batches, int8_pointwise=int8_pointwise)
+    return scales
+
+
+def save_int8_scales(path: str, scales: Dict[str, Dict[str, float]]) -> None:
+    """Write calibration scales as JSON (calibrate once, serve with the
+    file); the JAX package reads and writes the same file."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(scales, f, indent=1, sort_keys=True)
+    os.replace(tmp, path)
+
+
+def load_int8_scales(path: str) -> Dict[str, Dict[str, float]]:
+    with open(path) as f:
+        scales = json.load(f)
+    return {m: {site: float(v) for site, v in d.items()} for m, d in scales.items()}
 
 
 def discover_weights(weights_dir: str) -> Dict[str, str]:
@@ -69,8 +140,11 @@ class Pipeline:
     falls back to the CPU; pass ``device="cpu"`` to run there).
 
     ``weights`` maps model name -> ``.npz`` checkpoint in the JAX package's
-    format; members without one get Keras-initialised weights from
-    ``torch.Generator().manual_seed(seed + i)``.
+    format or a reference Keras ``.h5``, imported strictly unless
+    ``h5_strict=False`` (:func:`train.checkpoint.import_h5_weights`; the
+    report is printed).  Members without weights get Keras-initialised ones
+    from ``torch.Generator().manual_seed(seed + i)``, which is also the
+    starting point of an ``.h5`` import.
 
     ``fused=True`` runs the members over shared tiles in one dispatch per
     scene group; ``fused=False`` runs each member through its own
@@ -82,8 +156,13 @@ class Pipeline:
     whole-scene ones.  ``None`` turns blocking off.  Blocking needs the
     default ``fix_nonsquare_bug=True`` grid: a big scene in bug mode raises.
 
-    Not ported, and refused with ``NotImplementedError``: ``.h5`` weights
-    and ``int8_pointwise``.
+    ``int8_pointwise`` (``True`` or a minimum input-channel count) opts
+    into int8 pointwise convs (``nn.layers.int8_pointwise_conv``): NOT
+    mask-parity.  Static activation scales come from ``int8_scales``
+    (:func:`load_int8_scales`) or, without them, from calibrating on the
+    ``int8_calibration`` scenes here; with neither every site takes a
+    dynamic per-call scale.  ``self.int8_scales`` keeps what was used, for
+    :func:`save_int8_scales`.
     """
 
     def __init__(
@@ -97,10 +176,11 @@ class Pipeline:
         device="cuda",
         fused: bool = True,
         max_scene_tiles: Optional[int] = 1024,
-        int8_pointwise: bool = False,
+        h5_strict: bool = True,
+        int8_pointwise=False,
+        int8_calibration: Optional[List[np.ndarray]] = None,
+        int8_scales: Optional[Dict[str, Dict[str, float]]] = None,
     ):
-        if int8_pointwise:
-            raise NotImplementedError("int8 pointwise convs are slice 3 of the port")
         device = torch.device(device)
         check_device(device)
         self.cfg = cfg
@@ -114,13 +194,27 @@ class Pipeline:
                 print(f"[pipeline] no weights for {name!r}: using random init")
                 members[name] = init_model(name, torch.Generator().manual_seed(seed + i))
             elif path.endswith((".h5", ".hdf5")):
-                raise NotImplementedError(f"{path}: .h5 import is not ported; convert it to .npz with bdt-convert")
+                model = init_model(name, torch.Generator().manual_seed(seed + i))
+                params, state, report = import_h5_weights(path, *jax_variables(model), strict=h5_strict)
+                print(f"[pipeline] {name}: {report.summary()}")
+                members[name] = load_jax_variables(model, params, state)
             else:
                 params, state, *_ = load_variables(path)
                 members[name] = load_jax_variables(build_model(name), params, state)
         # each member module goes to exactly one predictor, which owns it
         make = FusedEnsemblePredictor if fused else EnsemblePredictor
-        self.ensemble = make(members, cfg.tiler, batch_tiles, compute_dtype, device)
+        self.ensemble = make(
+            members, cfg.tiler, batch_tiles, compute_dtype, device,
+            int8_pointwise=int8_pointwise, int8_scales=int8_scales,
+        )
+        if int8_pointwise and int8_scales is None and int8_calibration:
+            # calibrated where the members now live: on the device, in compute_dtype
+            int8_scales = calibrate_members_int8(
+                members, int8_calibration, cfg, compute_dtype, int8_pointwise
+            )
+            for name, model in members.items():
+                set_int8(model, int8_pointwise, int8_scales[name])
+        self.int8_scales = int8_scales
         self.timer = StageTimer()
 
     def _needs_blocking(self, image_rgb: np.ndarray) -> bool:

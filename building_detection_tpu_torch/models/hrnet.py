@@ -135,13 +135,22 @@ class HRNet(nn.Module):
         self.head = _CBR(n, 128, 64)
         self.out = L.Conv2d(n, 64, num_classes, 1, activation="softmax")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.layer1(self.stem(x))
+    def _stage1(self, y: torch.Tensor) -> List[torch.Tensor]:
         t = [self.t1[0](y), self.t1[1](y)]
-        f = self.fuse1([b(v) for b, v in zip(self.b1, t)])
-        t = [self.t2[0](f[0]), self.t2[1](f[1]), self.t2[2](f[1])]
-        f = self.fuse2([b(v) for b, v in zip(self.b2, t)])
-        t = [self.t3[0](f[0]), self.t3[1](f[1]), self.t3[2](f[2]), self.t3[3](f[2])]
-        out = self.fuse3([b(v) for b, v in zip(self.b3, t)])
-        out = self.head(L.upsample2d(out, 2))
-        return self.out(out)
+        return self.fuse1([b(v) for b, v in zip(self.b1, t)])
+
+    def _stage2(self, f0: torch.Tensor, f1: torch.Tensor) -> List[torch.Tensor]:
+        t = [self.t2[0](f0), self.t2[1](f1), self.t2[2](f1)]
+        return self.fuse2([b(v) for b, v in zip(self.b2, t)])
+
+    def _stage3(self, f0: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
+        t = [self.t3[0](f0), self.t3[1](f1), self.t3[2](f2), self.t3[3](f2)]
+        return self.fuse3([b(v) for b, v in zip(self.b3, t)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the JAX model's remat stages end after layer1 and after each fusion
+        y = L.stage(self, lambda v: self.layer1(self.stem(v)), x)
+        f = L.stage(self, self._stage1, y)
+        f = L.stage(self, self._stage2, *f)
+        out = L.stage(self, self._stage3, *f)
+        return L.stage(self, lambda v: self.out(self.head(L.upsample2d(v, 2))), out)

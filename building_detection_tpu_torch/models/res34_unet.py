@@ -61,9 +61,9 @@ class Encoder(nn.Module):
             in_ch = ch
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        outs = [self.stem(x)]
+        outs = [L.stage(self, self.stem, x)]
         for stage in self.stages:
-            outs.append(stage(outs[-1]))
+            outs.append(L.stage(self, stage, outs[-1]))
         return tuple(outs)
 
 
@@ -117,11 +117,14 @@ class Res34UNet(nn.Module):
         self.head2 = L.Conv2d(namer, 64, 2, 3, activation="softmax", kernel_init=L.he_normal)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the encoder stages and the decoder's upsampling steps are the JAX
+        # model's remat stages; the cross-scale blocks, the SE gates and the
+        # head run as segments of their own
         c1, c2, c3, c4, c5 = self.encoder(x)
-        c2, c3 = self.l2h1(c1, c2, c3)
-        c3, c4 = self.l2h2(c2, c3, c4)
-        feats = [se(c) for se, c in zip(self.se, (c1, c2, c3, c4, c5))]
+        c2, c3 = L.stage(self, self.l2h1, c1, c2, c3)
+        c3, c4 = L.stage(self, self.l2h2, c2, c3, c4)
+        feats = [L.stage(self, se, c) for se, c in zip(self.se, (c1, c2, c3, c4, c5))]
         y = feats[4]
         for up, low in zip(self.ups, (feats[3], feats[2], feats[1], feats[0])):
-            y = up(low, y)
-        return self.head2(self.head1(y))
+            y = L.stage(self, up, low, y)
+        return L.stage(self, lambda v: self.head2(self.head1(v)), y)

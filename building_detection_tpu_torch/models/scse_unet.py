@@ -52,11 +52,11 @@ class SCSEUNet(nn.Module):
         self.head = L.Conv2d(namer, in_ch, num_classes, 1, activation="softmax")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        skips = []
-        for i, stage in enumerate(self.down):
-            x = stage(x if i == 0 else L.max_pool(x))
-            skips.append(x)
+        # every encoder and decoder stage is a remat stage of the JAX model
+        skips = [L.stage(self, self.down[0], x)]
+        for stage in self.down[1:]:
+            skips.append(L.stage(self, lambda v, s=stage: s(L.max_pool(v)), skips[-1]))
         y = skips.pop()
         for stage in self.up:
-            y = stage(y, skips.pop())
+            y = L.stage(self, stage, y, skips.pop())
         return self.head(y)

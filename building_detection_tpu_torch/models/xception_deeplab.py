@@ -101,17 +101,24 @@ class _Backbone(nn.Module):
             [_SepBN(namer, 1024, 1536, pre_relu=False), _SepBN(namer, 1536, 1536), _SepBN(namer, 1536, 2048)]
         )
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        c = x = self.bam0(self.entry(x))
-        c1 = x = self.block1(x)
-        c2 = x = self.block2(self.bam1(x))
-        c3 = x = self.block3(self.bam2(x))
-        c4 = x = self.middle(x)
+    def _exit(self, x: torch.Tensor) -> torch.Tensor:
         x = self.bam4(x)
         x = self.exit_seps(x) + self.exit_residual(x)
         for sep in self.exit_tail:
             x = sep(x)
-        c5 = L.relu(x)
+        return L.relu(x)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        # remat stages: the JAX model tags c1, c2, c3, every fourth middle
+        # block and c5; the entry convs run as a segment of their own
+        c = x = L.stage(self, lambda v: self.bam0(self.entry(v)), x)
+        c1 = x = L.stage(self, self.block1, x)
+        c2 = x = L.stage(self, lambda v: self.block2(self.bam1(v)), x)
+        c3 = x = L.stage(self, lambda v: self.block3(self.bam2(v)), x)
+        for i in range(0, len(self.middle), 4):
+            x = L.stage(self, self.middle[i : i + 4], x)
+        c4 = x
+        c5 = L.stage(self, self._exit, x)
         return [c, c1, c2, c3, c4, c5]
 
 
@@ -178,11 +185,12 @@ class DeepLabV3P(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c, c1, c2, _, _, c5 = self.backbone(x)
-        y = self.dec1(torch.cat([L.upsample2d(self.head(c5), 2), c2], dim=-1))
-        y = self.dec2(torch.cat([self.up2(y), c1], dim=-1))
-        y = self.dec3(torch.cat([c, self.up3(y)], dim=-1))
-        y = self.dec4(L.upsample2d(y, 2))
-        return self.out(y)
+        # remat stages: the head and each decoder level up to its scSE gate
+        y = L.stage(self, self.head, c5)
+        y = L.stage(self, lambda v, s: self.dec1(torch.cat([L.upsample2d(v, 2), s], dim=-1)), y, c2)
+        y = L.stage(self, lambda v, s: self.dec2(torch.cat([self.up2(v), s], dim=-1)), y, c1)
+        y = L.stage(self, lambda v, s: self.dec3(torch.cat([s, self.up3(v)], dim=-1)), y, c)
+        return L.stage(self, lambda v: self.out(self.dec4(L.upsample2d(v, 2))), y)
 
 
 class DeepLabV3PBAM(nn.Module):
@@ -199,6 +207,8 @@ class DeepLabV3PBAM(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _, c1, c2, _, _, c5 = self.backbone(x)
-        y = self.dec1(torch.cat([c2, L.upsample2d(self.head(c5), 2)], dim=-1))
-        y = self.dec2(torch.cat([c1, L.upsample2d(y, 2)], dim=-1))
-        return self.out(L.upsample2d(y, 4))
+        # remat stages: the head and each decoder level up to its scSE gate
+        y = L.stage(self, self.head, c5)
+        y = L.stage(self, lambda v, s: self.dec1(torch.cat([s, L.upsample2d(v, 2)], dim=-1)), y, c2)
+        y = L.stage(self, lambda v, s: self.dec2(torch.cat([s, L.upsample2d(v, 2)], dim=-1)), y, c1)
+        return L.stage(self, lambda v: self.out(L.upsample2d(v, 4)), y)

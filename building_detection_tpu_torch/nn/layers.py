@@ -21,14 +21,20 @@ package, which follows Keras:
   its input to the same dtype, as the JAX layers cast to ``compute_dtype``
   (:meth:`core.module.KerasLayer.cast`); BN statistics stay f32.
 
-The int8 pointwise branch of the JAX package is not ported yet.
+Two opt-ins of the JAX package live here too: int8 pointwise convs for
+serving (:func:`int8_pointwise_conv`, switched on per model by
+:func:`core.module.set_int8`) and rematerialised stages for training
+(:func:`stage`, switched on by :func:`core.module.set_remat`).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import contextlib
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from building_detection_tpu_torch.core.module import (
     Init,
@@ -94,6 +100,96 @@ def _conv_nhwc(
     return y.permute(0, 2, 3, 1)
 
 
+# -- int8 pointwise convs (serving opt-in) ------------------------------------
+def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`int8_matmul`: the same product in int32
+    with ``torch.matmul`` (exact; CPU tensors, where int32 matmul exists)."""
+    return torch.matmul(a.to(torch.int32), b.to(torch.int32))
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``(M, K) int8 @ (K, N) int8 -> (M, N) int32``, exact.
+
+    On a CUDA tensor this is ``torch._int_mm`` (cuBLASLt's int8 GEMM with
+    int32 accumulation; counted in ``int8_matmul.calls``).  It takes M > 16
+    and K, N multiples of 8, so a shape that breaks those is padded with
+    zero rows and columns, which adds nothing to the product, and the pad is
+    cropped off.  On the TPU, XLA generated this product; no Pallas kernel
+    computes it.  A CPU tensor runs :func:`int8_matmul_plain`.
+    """
+    if a.dtype != torch.int8 or b.dtype != torch.int8 or a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"int8_matmul takes (M, K) @ (K, N) int8, got {a.dtype} {tuple(a.shape)} @ "
+                         f"{b.dtype} {tuple(b.shape)}")
+    if a.device.type == "cpu":
+        return int8_matmul_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"int8_matmul runs on CPU or CUDA tensors, got {a.device}")
+    out = _int_mm_padded(a, b, torch._int_mm)
+    int8_matmul.calls += 1
+    return out
+
+
+def _int_mm_padded(a: torch.Tensor, b: torch.Tensor, mm: Callable) -> torch.Tensor:
+    """``mm(a, b)`` within ``torch._int_mm``'s shape rules: M padded to 17
+    rows where it has fewer, K and N to multiples of 8, all with zeros (which
+    add nothing), and the right operand handed over column-major, the layout
+    cuBLASLt's int8 path takes; the pad is cropped off the product."""
+    (m, k), n = a.shape, b.shape[1]
+    pm, pk, pn = max(17 - m, 0), -k % 8, -n % 8
+    if pm or pk:
+        a = F.pad(a, (0, pk, 0, pm))
+    if pk or pn:
+        b = F.pad(b, (0, pn, 0, pk))
+    out = mm(a, b.t().contiguous().t())
+    return out[:m, :n] if pm or pn else out
+
+
+int8_matmul.calls = 0
+
+
+def _use_int8(layer: KerasLayer, in_ch: int, kernel: Tuple[int, int], strides, dilation) -> bool:
+    """The JAX ``_use_int8`` gate: ``layer.int8_pointwise`` is a bool or a
+    minimum input-channel count; only 1x1, stride-1, dilation-1 convs of a
+    layer in eval mode quantize (training never does)."""
+    flag = layer.int8_pointwise
+    if not flag or layer.training:
+        return False
+    min_ch = 1 if flag is True else int(flag)
+    return in_ch >= min_ch and tuple(kernel) == (1, 1) and tuple(strides) == (1, 1) and tuple(dilation) == (1, 1)
+
+
+def int8_pointwise_conv(layer: KerasLayer, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """A 1x1 conv as an int8 x int8 -> int32 product: the JAX package's
+    ``_int8_pointwise_matmul``, site named by ``layer.jax_name``.
+
+    ``x`` is ``(B, H, W, C_in)`` in the compute dtype, ``kernel`` the layer's
+    ``(C_out, C_in, 1, 1)`` weight in the same dtype.  One per-tensor
+    activation scale: ``layer.int8_scale`` (a calibrated amax) when set,
+    else the tensor's own max; per-output-channel weight scales; codes
+    ``clip(round(v / scale), -127, 127)``; the int32 product on the
+    ``(B*H*W, C_in)`` view (free for a channels-last activation) dequantized
+    to the compute dtype.  While ``layer.int8_amax`` is a dict, the site
+    records its observed amax there (calibration).  NOT mask-parity with
+    bf16/f32 (about 1e-2 relative).
+    """
+    b, h, w, c = x.shape
+    record, site = layer.int8_amax, layer.jax_name
+    seen = x.float().abs().amax() if layer.int8_scale is None or record is not None else None
+    if record is not None:
+        record[site] = torch.maximum(record[site], seen) if site in record else seen
+    if layer.int8_scale is None:
+        sx = seen
+    else:
+        sx = torch.full((), float(layer.int8_scale), dtype=torch.float32, device=x.device)
+    sx = sx.clamp_min(1e-8) / 127.0
+    xq = torch.clamp(torch.round(x * (1.0 / sx).to(x.dtype)), -127, 127).to(torch.int8)
+    w2 = kernel.float().reshape(kernel.shape[0], c)  # (C_out, C_in)
+    sw = w2.abs().amax(dim=1).clamp_min(1e-8) / 127.0
+    wq = torch.clamp(torch.round(w2 / sw[:, None]), -127, 127).to(torch.int8)
+    acc = int8_matmul(xq.reshape(b * h * w, c), wq.t())
+    return (acc.to(x.dtype) * (sx * sw).to(x.dtype)).reshape(b, h, w, -1)
+
+
 class Conv2d(KerasLayer):
     """``keras.layers.Conv2D`` (JAX kernel HWIO, stored OIHW)."""
 
@@ -123,7 +219,13 @@ class Conv2d(KerasLayer):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.cast(self.kernel)
-        y = _conv_nhwc(x.to(w.dtype), w, self.cast(self.bias), self.strides, self.padding, self.dilation)
+        x = x.to(w.dtype)
+        if _use_int8(self, x.shape[-1], w.shape[2:], self.strides, self.dilation):
+            y = int8_pointwise_conv(self, x, w)
+            if self.bias is not None:
+                y = y + self.cast(self.bias)
+        else:
+            y = _conv_nhwc(x, w, self.cast(self.bias), self.strides, self.padding, self.dilation)
         return _activate(y, self.activation)
 
 
@@ -161,7 +263,14 @@ class SeparableConv2d(KerasLayer):
             x.to(dw.dtype), dw, None, self.strides, self.padding,
             self.dilation, groups=x.shape[-1],
         )
-        y = _conv_nhwc(y, self.cast(self.pointwise_kernel), self.cast(self.bias), (1, 1), "VALID", (1, 1))
+        pw = self.cast(self.pointwise_kernel)
+        if _use_int8(self, x.shape[-1], (1, 1), (1, 1), (1, 1)):
+            # the depthwise step stays in the compute dtype; the projection quantizes
+            y = int8_pointwise_conv(self, y, pw)
+            if self.bias is not None:
+                y = y + self.cast(self.bias)
+        else:
+            y = _conv_nhwc(y, pw, self.cast(self.bias), (1, 1), "VALID", (1, 1))
         return _activate(y, self.activation)
 
 
@@ -252,7 +361,11 @@ class BatchNorm(KerasLayer):
     inputs: Keras' fused 4-D path reports the unbiased variance, its 2-D
     path (the SE and BAM gates' ``(B, C)`` inputs) the biased one.
     ``F.batch_norm`` always applies the factor, so it is not used here.
+    When :func:`stage` recomputes a segment for the backward,
+    ``update_moving`` is off: the moving statistics move once a step.
     """
+
+    update_moving = True
 
     def __init__(
         self,
@@ -277,10 +390,11 @@ class BatchNorm(KerasLayer):
             var, mean = torch.var_mean(x.float(), dim=axes, correction=0)
             n = x.numel() // x.shape[-1]
             bessel = n / (n - 1) if x.dim() == 4 and n > 1 else 1.0
-            with torch.no_grad():
-                m = self.momentum
-                self.moving_mean.copy_(self.moving_mean * m + mean * (1.0 - m))
-                self.moving_variance.copy_(self.moving_variance * m + (var * bessel) * (1.0 - m))
+            if self.update_moving:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.moving_mean.copy_(self.moving_mean * m + mean * (1.0 - m))
+                    self.moving_variance.copy_(self.moving_variance * m + (var * bessel) * (1.0 - m))
         else:
             mean, var = self.moving_mean, self.moving_variance
         inv = torch.rsqrt(var + self.epsilon).to(x.dtype) * gamma
@@ -355,3 +469,40 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return torch.softmax(x, dim=axis)
+
+
+# -- rematerialised stages (training opt-in) ------------------------------------
+@contextlib.contextmanager
+def _moving_stats_frozen(owner: nn.Module):
+    """BatchNorms under ``owner`` leave their moving statistics alone (the
+    recompute of a stage: its first forward already updated them)."""
+    bns = [m for m in owner.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.update_moving = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            del bn.update_moving
+
+
+def stage(owner: nn.Module, fn: Callable, *args):
+    """``fn(*args)``, one stage of ``owner``'s forward: a segment whose
+    output the JAX models tag with ``remat_tag``.
+
+    When ``owner.remat`` is set (:func:`core.module.set_remat`) and the call
+    builds a graph in train mode, the segment runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its inputs are saved and its
+    insides recomputed in the backward, as ``jax.checkpoint`` with
+    ``save_only_these_names('stage')`` does.  The recompute sees the same
+    inputs and parameters, so it takes the same batch statistics, and its
+    BatchNorms do not update their moving statistics a second time.  The
+    numbers are those of the plain forward.  ``fn`` may only run layers
+    under ``owner``.
+    """
+    if not (getattr(owner, "remat", False) and owner.training and torch.is_grad_enabled()):
+        return fn(*args)
+    return checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,  # the models draw no random numbers
+        context_fn=lambda: (contextlib.nullcontext(), _moving_stats_frozen(owner)),
+    )

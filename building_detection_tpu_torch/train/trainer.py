@@ -21,8 +21,10 @@ param is cast where it is used, so gradients land on the f32 params).
 :meth:`Trainer.train_on_batch` and :meth:`Trainer.train_epoch_staged` run
 one step body, so on one device the two paths give the same bits.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh``, ``tp``
-and ``remat`` (multi-device and rematerialised training), ``.h5`` weights.
+``remat=True`` rematerialises the forward stage by stage
+(:func:`nn.layers.stage`); the numbers do not change.  Not ported yet, and
+refused with ``NotImplementedError``: ``mesh`` and ``tp`` (multi-device
+training).
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from building_detection_tpu_torch.core.module import (
     jax_variables,
     load_jax_variables,
     set_compute_dtype,
+    set_remat,
 )
 from building_detection_tpu_torch.data.augment import augment_batch
 from building_detection_tpu_torch.data.prefetch import device_prefetch
@@ -105,8 +108,6 @@ class Trainer:
     ):
         if mesh is not None or tp:
             raise NotImplementedError("multi-device and tensor-parallel training are slice 3 of the port")
-        if remat:
-            raise NotImplementedError("remat (rematerialised stages) is not ported")
         self.device = torch.device(device)
         check_device(self.device)
         if isinstance(model_name, str):
@@ -114,7 +115,7 @@ class Trainer:
         else:
             self.model_name, model = getattr(model_name, "__name__", "custom"), model_name()
         init_layers(model, torch.Generator().manual_seed(seed))
-        self.model = set_compute_dtype(model.to(self.device), compute_dtype)
+        self.model = set_remat(set_compute_dtype(model.to(self.device), compute_dtype), remat)
         self.cfg = cfg
         self.steps_per_epoch = steps_per_epoch
         self.compute_dtype = compute_dtype
@@ -391,11 +392,14 @@ class Trainer:
 
     def load_weights(self, path: str) -> None:
         """Weights-only initialisation (transfer learning): params and BN
-        state from an ``.npz`` checkpoint; optimizer, schedule and step stay
-        fresh.  Use :meth:`restore` for an exact resume."""
+        state from an ``.npz`` checkpoint or a reference Keras ``.h5``
+        (imported strictly, :func:`train.checkpoint.import_h5_weights`);
+        optimizer, schedule and step stay fresh.  Use :meth:`restore` for an
+        exact resume."""
         if path.endswith((".h5", ".hdf5")):
-            raise NotImplementedError(f"{path}: .h5 import is not ported; convert it to .npz with bdt-convert")
-        params, state, *_ = ckpt.load_variables(path)
+            params, state, _ = ckpt.import_h5_weights(path, *jax_variables(self.model), strict=True)
+        else:
+            params, state, *_ = ckpt.load_variables(path)
         self._place_weights(path, params, state)
 
     def restore(self, path: str) -> None:

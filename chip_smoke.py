@@ -21,14 +21,25 @@ default device (the card):
   against the whole scene (time, peak device memory, differing pixels), and
   in f32 with TF32 off, deterministic cuDNN and one tile a forward, blocked
   equal to whole on a 2048x2048 scene for the ensemble and one member;
+* int8 pointwise convs: ``Pipeline(int8_pointwise=512, int8_calibration=...)``
+  calibrated on the smoke scenes, ``predict_images`` through it (every active
+  site through ``torch._int_mm``, counted), tiles/s and differing pixels
+  against bf16; ``_int_mm`` bit-equal to its int32 twin at a real Xception
+  site shape and timed against a bf16 ``torch.matmul`` of that shape;
 * the CLIs as subprocesses: ``bdt-predict`` over a directory (one process,
   then two shards whose union equals it, file for file), ``bdt-serve`` on an
-  ephemeral port (``/health``, three ``POST /photo``, SIGTERM drains and
-  exits 0) and ``bdt-augment`` (host only);
+  ephemeral port (``/health``, three ``POST /photo`` sent with the port's
+  ``bdt-client`` ``detect``, the client CLI once, SIGTERM drains and exits
+  0) and ``bdt-augment`` (host only);
+* Keras ``.h5``: without ``h5py`` a ``Pipeline`` over an ``.h5`` raises an
+  ``ImportError`` naming it; with it, ``bdt-convert`` both ways and a
+  ``Pipeline`` from the ``.h5`` equal to the ``.npz`` run;
 * training: ``Trainer`` steps for each of the five members on 512x512 tiles
   at batch 8, in f32 and bf16, with ``make_targets`` (and so the kernel)
   inside every step; one f32 step per member held against the same step on
-  the CPU; save/restore and the staged epoch held against the per-step path.
+  the CPU; save/restore and the staged epoch held against the per-step path;
+  ``Trainer(remat=True)`` against ``remat=False`` (f32 bit-equal, bf16 peak
+  memory and step time).
 
 It imports nothing of JAX and nothing of the JAX package.  Any failed check
 exits non-zero before the result lines.  The second-to-last line is a JSON
@@ -85,6 +96,10 @@ BIG_SCENE = 4096                  # 11 x 11 = 121 tiles: blocked at max_scene_ti
 EXACT_SCENE = 2048                # 6 x 6 = 36 tiles, blocks of 9: blocked == whole in f32
 CLI_SCENES = {"a": (1024, 1024), "b": (1024, 1024), "h": (700, 1300), "x": (100, 100)}
 CLI_TIMEOUT_S = 600
+INT8_SITE = (32 * 32 * 32, 728, 728)  # M, K, N: batch 32 at 32x32 x 728->728, an Xception middle-flow projection
+INT8_MIN_CH = 512                 # the CLIs' int8_pointwise: the Xception projections only
+REMAT_MEMBER = "res34"            # the member of the remat phase, 512x512, batch 8
+REMAT_STEPS = 3                   # bf16 steps each way (median of the last two)
 
 
 class SmokeFailure(RuntimeError):
@@ -583,6 +598,225 @@ def phase_blocked(pipe):
     torch.cuda.empty_cache()
 
 
+def int8_sites(model, min_ch: int):
+    """(site, K, N) of every 1x1, stride-1, dilation-1 conv and separable
+    pointwise step of ``model`` with at least ``min_ch`` input channels: the
+    sites ``int8_pointwise=min_ch`` quantizes."""
+    from building_detection_tpu_torch.nn import layers as L
+
+    out = []
+    for m in model.modules():
+        if isinstance(m, L.SeparableConv2d):
+            k, n = m.pointwise_kernel.shape[1], m.pointwise_kernel.shape[0]
+        elif isinstance(m, L.Conv2d) and tuple(m.kernel.shape[2:]) == (1, 1) and m.strides == (1, 1) \
+                and m.dilation == (1, 1):
+            k, n = m.kernel.shape[1], m.kernel.shape[0]
+        else:
+            continue
+        if k >= min_ch:
+            out.append((m.jax_name, int(k), int(n)))
+    return out
+
+
+def phase_int_mm():
+    """``torch._int_mm`` through ``int8_matmul`` at INT8_SITE against its
+    int32 twin (``torch.matmul`` on int32, on the CPU: CUDA has no int32
+    matmul), bit for bit; its time against a bf16 ``torch.matmul`` of the
+    same shape (CUDA events, median of 20)."""
+    import torch
+
+    from building_detection_tpu_torch.nn import layers as L
+
+    m, k, n = INT8_SITE
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    b = wq.t()  # the layer's operand: the (N, K) codes viewed as (K, N)
+    got = L.int8_matmul(a, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = L.int8_matmul_plain(a.cpu(), b.cpu())
+    plain_cpu_s = time.perf_counter() - t0
+    check(got.dtype == torch.int32 and torch.equal(got.cpu(), want), "_int_mm differs from its int32 twin")
+    ms = cuda_ms(lambda: L.int8_matmul(a, b), 20)
+    b_rows = b.contiguous()
+    rows_ms = cuda_ms(lambda: torch._int_mm(a, b_rows), 20)
+    xb, wb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    bf16_ms = cuda_ms(lambda: torch.matmul(xb, wb), 20)
+    ops = 2 * m * k * n
+    say("int8", f"torch._int_mm at (M, K, N) = {INT8_SITE}: bit-equal to the int32 twin (twin on the CPU, "
+                f"{plain_cpu_s:.1f} s); {ms:.4f} ms = {ops / ms / 1e9:.1f} TOP/s (right operand column-major, as the "
+                f"layers call it; row-major {rows_ms:.4f} ms) against a bf16 torch.matmul of the same shape "
+                f"{bf16_ms:.4f} ms = {ops / bf16_ms / 1e9:.1f} TFLOP/s (median of 20)")
+
+
+def phase_int8(pipe):
+    """The int8 path through its entry point: ``Pipeline(int8_pointwise=512,
+    int8_calibration=<two smoke scenes>)`` on the card, bf16, the same seeded
+    weights as ``pipe``.  ``predict_images`` over the smoke scenes is the
+    counted run: every active site of every member goes through
+    ``torch._int_mm`` once a chunk.  Then tiles/s of the five-member forward
+    at 32 tiles of 512^2, int8 against bf16 (in turns), and the pixels each
+    member's mask differs from the bf16 run's."""
+    import torch
+
+    from building_detection_tpu_torch.infer.pipeline import Pipeline
+    from building_detection_tpu_torch.nn import layers as L
+    from building_detection_tpu_torch.ops import tiling as T
+
+    imgs = scenes()
+    int8, build_s = timed(lambda: Pipeline(compute_dtype=torch.bfloat16, seed=SEED, int8_pointwise=INT8_MIN_CH,
+                                           int8_calibration=imgs[:2]))
+    sites = {name: int8_sites(model, INT8_MIN_CH) for name, model in int8.ensemble.models.items()}
+    for name, found in sites.items():
+        check(set(int8.int8_scales[name]) == {s for s, _, _ in found},
+              f"{name}: calibrated sites {sorted(int8.int8_scales[name])} are not the active ones")
+        padded = [f"{s} {k}->{n}" for s, k, n in found if k % 8 or n % 8]
+        shapes = {}
+        for _, k, n in found:
+            shapes[f"{k}->{n}"] = shapes.get(f"{k}->{n}", 0) + 1
+        say("int8", f"{name}: {len(found)} sites at >= {INT8_MIN_CH} input channels, K->N {json.dumps(shapes)}; "
+                    f"padded for _int_mm: {padded or 'none'}")
+    say("int8", f"Pipeline(int8_pointwise={INT8_MIN_CH}) built and calibrated on 2 scenes in {build_s:.1f} s")
+    L.int8_matmul.calls = 0
+    results, secs = timed(lambda: int8.predict_images(imgs))
+    calls = L.int8_matmul.calls
+    # one dispatch per scene shape here (the two 1024^2 scenes group), each of
+    # ceil(tiles / batch_tiles) chunks; the 100x100 scene has no tile
+    by_shape = {}
+    for img in imgs:
+        by_shape[img.shape[:2]] = by_shape.get(img.shape[:2], 0) + 1
+    chunks = sum(-(-T.plan_tiles(h, w, int8.cfg.tiler).num_tiles * count // int8.batch_tiles)
+                 for (h, w), count in by_shape.items())
+    n_sites = sum(len(v) for v in sites.values())
+    say("int8", f"predict_images over 4 scenes in {secs:.2f} s (first call): {calls} _int_mm launches "
+                f"({n_sites} sites x {chunks} chunks)")
+    check(calls == n_sites * chunks, f"{calls} _int_mm launches, expected {n_sites} sites x {chunks} chunks")
+    check_results(imgs, results, int8.ensemble.names)
+    want = pipe.predict_images(imgs)
+    px = sum(img.shape[0] * img.shape[1] for img in imgs)
+    diff = {name: sum(int((r.masks[name] != w.masks[name]).sum()) for r, w in zip(results, want))
+            for name in int8.ensemble.names}
+    say("int8", f"pixels differing int8 vs bf16 per member (of {px}): {json.dumps(diff)}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tile = pipe.cfg.tiler.tile
+    tiles = (torch.rand((32, tile, tile, 3), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
+    rates = {"bf16": [], "int8": []}
+    with torch.inference_mode():
+        for label in ("bf16", "int8", "int8", "bf16"):
+            ens = pipe.ensemble if label == "bf16" else int8.ensemble
+            rates[label].append(32 / (cuda_ms(lambda: ens.member_bits(tiles), 3) / 1000.0))
+    say("int8", f"five-member forward, 32 tiles of {tile}^2: int8 "
+                f"{' / '.join(f'{r:.2f}' for r in rates['int8'])} tiles/s, bf16 "
+                f"{' / '.join(f'{r:.2f}' for r in rates['bf16'])} tiles/s (in turns bf16, int8, int8, bf16)")
+    del int8, results, want, tiles
+    torch.cuda.empty_cache()
+    return calls
+
+
+def phase_h5(here: str, work: str):
+    """Keras ``.h5`` weights on this machine.  Without ``h5py``, a
+    ``Pipeline`` over an ``.h5`` must raise an ``ImportError`` that names
+    it.  With it: ``bdt-convert`` .npz -> .h5 -> .npz gives the weights back
+    bit for bit, and a one-member ``Pipeline`` from the ``.h5`` gives the
+    ``.npz`` run's mask."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu_torch.core.module import jax_variables
+    from building_detection_tpu_torch.infer.pipeline import Pipeline
+    from building_detection_tpu_torch.models.registry import init_model
+    from building_detection_tpu_torch.train.checkpoint import load_variables, save_variables
+
+    npz = os.path.join(work, "scse.npz")
+    save_variables(npz, *jax_variables(init_model("scse", torch.Generator().manual_seed(SEED + 13))))
+    h5 = os.path.join(work, "scse.h5")
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        try:
+            Pipeline({"scse": h5}, models=("scse",), compute_dtype=torch.bfloat16)
+        except ImportError as e:
+            check("h5py" in str(e), f"the ImportError does not name h5py: {e}")
+            say("h5", f"h5py absent on this machine: Pipeline over an .h5 raises ImportError ({e}); the bdt-convert "
+                      f"round trip and the .h5 Pipeline were not run (they need h5py)")
+            return
+        raise SmokeFailure("Pipeline over an .h5 did not raise without h5py")
+    _, to_h5 = run_cli(here, "convert", ["scse", npz, h5], "bdt-convert npz->h5")
+    back = os.path.join(work, "back.npz")
+    _, to_npz = run_cli(here, "convert", ["scse", h5, back], "bdt-convert h5->npz")
+    (p0, s0, *_), (p1, s1, *_) = load_variables(npz), load_variables(back)
+    check(set(p0) == set(p1) and all(np.array_equal(p0[k], p1[k]) for k in p0) and set(s0) == set(s1),
+          "bdt-convert npz -> h5 -> npz changed the weights")
+    img = scenes()[0]
+    masks = [Pipeline({"scse": path}, models=("scse",), compute_dtype=torch.bfloat16).ensemble.predict_masks(img)
+             ["scse"] for path in (npz, h5)]
+    check(np.array_equal(masks[0], masks[1]), "the .h5 Pipeline's mask differs from the .npz one's")
+    say("h5", f"bdt-convert npz -> h5 {to_h5:.1f} s, h5 -> npz {to_npz:.1f} s, weights back bit for bit; "
+              f"Pipeline from the .h5 equals the .npz run on a 1024x1024 scene")
+
+
+def phase_remat():
+    """``Trainer(remat=True)`` against ``remat=False``, REMAT_MEMBER at
+    512x512, batch 8, on the card.  f32 with TF32 off and deterministic
+    cuDNN: one step each way gives the same loss, params and BN statistics.
+    bf16: peak device memory and ms per step each way.  Returns the
+    edge-kernel launches of these steps."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu_torch.core.config import TrainConfig
+    from building_detection_tpu_torch.core.module import jax_variables
+    from building_detection_tpu_torch.kernels import edge_weights as K
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    cfg = TrainConfig(warmup_epochs=0)
+    imgs, labs = train_batch(SEED + 14, cfg.batch_size, cfg.image_size)
+    before = K.edge_weight_maps.launches
+    saved = exact_f32()
+    try:
+        runs = {}
+        for remat in (False, True):
+            tr = Trainer(REMAT_MEMBER, cfg, seed=SEED, remat=remat)
+            loss = tr.train_on_batch(imgs, labs)["loss"]
+            runs[remat] = (loss, *jax_variables(tr.model))
+            del tr
+        (l0, p0, s0), (l1, p1, s1) = runs[False], runs[True]
+        dp = max(float(np.abs(p0[k] - p1[k]).max()) for k in p0)
+        ds = max(float(np.abs(s0[k] - s1[k]).max()) for k in s0)
+        say("remat", f"{REMAT_MEMBER} f32, TF32 off, deterministic cuDNN, one step: loss {l1!r} with remat, {l0!r} "
+                     f"without; params max |d| {dp:.3e}, BN statistics max |d| {ds:.3e}")
+        check(l0 == l1 and dp == 0.0 and ds == 0.0, "remat changed the f32 step")
+    finally:
+        restore_backends(saved)
+        torch.cuda.empty_cache()
+    out = {}
+    for remat in (False, True, True, False):
+        tr = Trainer(REMAT_MEMBER, cfg, seed=SEED, compute_dtype=torch.bfloat16, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(REMAT_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            tr.train_on_batch(imgs, labs)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated()
+        out.setdefault(remat, []).append((statistics.median(times[1:]), (peak - base) / 2**30, peak / 2**30))
+        del tr
+        torch.cuda.empty_cache()
+    for remat in (False, True):
+        say("remat", f"{REMAT_MEMBER} bf16 {'remat' if remat else 'plain'}: "
+                     + "; ".join(f"{ms:.1f} ms/step, peak {peak:.2f} GiB ({above:.2f} above the model and batch)"
+                                 for ms, above, peak in out[remat])
+                     + f" (median of steps 2-{REMAT_STEPS}; two runs, in turns plain, remat, remat, plain)")
+    check(max(a for _, a, _ in out[True]) < min(a for _, a, _ in out[False]), "remat did not lower the peak memory")
+    return K.edge_weight_maps.launches - before
+
+
 def port_env(here: str) -> dict:
     return dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
 
@@ -662,25 +896,20 @@ def phase_predict_cli(here: str, work: str):
     say("predict-cli", f"two shards side by side: {secs:.1f} s wall; their union equals the single run, file for file")
 
 
-def multipart(filename: str, payload: bytes):
-    boundary = "bdtsmoke" + os.urandom(8).hex()
-    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; filename=\"{filename}\"\r\n"
-            f"Content-Type: image/png\r\n\r\n").encode() + payload + f"\r\n--{boundary}--\r\n".encode()
-    return body, f"multipart/form-data; boundary={boundary}"
-
-
 def phase_serve_cli(here: str, work: str):
     """``bdt-serve --port 0`` on its default device: read the bound port,
-    ``GET /health``, three PNG ``POST /photo`` requests, then SIGTERM: the
+    ``GET /health``, three PNG ``POST /photo`` requests through the port's
+    ``bdt-client`` (``detect``), the client CLI once, then SIGTERM: the
     process prints its drain line and exits 0."""
     import http.client
-    import io
     import queue
     import signal
     import threading
 
     import numpy as np
     from PIL import Image
+
+    from building_detection_tpu_torch.serve import client
 
     cmd = [sys.executable, "-u", "-m", "building_detection_tpu_torch.cli.serve", "--host", "127.0.0.1", "--port", "0",
            "--root-dir", work]
@@ -715,18 +944,27 @@ def phase_serve_cli(here: str, work: str):
         health = conn.getresponse()
         check(health.status == 200, f"GET /health answered {health.status}")
         health.read()
+        conn.close()
         rng = np.random.RandomState(SEED + 11)
+        url = f"http://127.0.0.1:{port}/photo"
         times = []
         for i in range(3):
-            buf = io.BytesIO()
-            Image.fromarray(rng.randint(0, 256, (600, 800, 3)).astype(np.uint8)).save(buf, format="PNG")
-            body, ctype = multipart(f"scene{i}.png", buf.getvalue())
+            path = os.path.join(work, f"scene{i}.png")
+            Image.fromarray(rng.randint(0, 256, (600, 800, 3)).astype(np.uint8)).save(path)
             t1 = time.perf_counter()
-            conn.request("POST", "/photo", body=body, headers={"Content-Type": ctype, "clientID": "smoke"})
-            answer = json.loads(conn.getresponse().read())
+            answer = client.detect(path, url=url, client_id="smoke")
             times.append(time.perf_counter() - t1)
             check(answer["status"] == "success", f"POST /photo answered {answer['status']}: {answer['error']}")
-        conn.close()
+        saved_png = os.path.join(work, "client_result.png")
+        t1 = time.perf_counter()
+        done = subprocess.run([sys.executable, "-m", "building_detection_tpu_torch.serve.client", path, "--url", url,
+                               "--save", saved_png], cwd=here, env=port_env(here), capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT_S)
+        client_s = time.perf_counter() - t1
+        check(done.returncode == 0, f"bdt-client exited {done.returncode}: {done.stdout[-2000:]} {done.stderr[-2000:]}")
+        line = json.loads(done.stdout.strip().splitlines()[-1])
+        with Image.open(saved_png) as im:
+            check(line["status"] == "success" and im.size == (800, 600), f"bdt-client: {line}, saved {im.size}")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=CLI_TIMEOUT_S)
         read_until(lambda s: False, 10)
@@ -737,7 +975,8 @@ def phase_serve_cli(here: str, work: str):
             proc.kill()
             proc.wait()
     say("serve-cli", f"bdt-serve ready (warmed up, bound to port {port}) {ready_s:.1f} s after start; /health 200; "
-                     f"3 POST /photo success in {' / '.join(f'{t:.2f}' for t in times)} s; SIGTERM: "
+                     f"3 POST /photo through client.detect, success in {' / '.join(f'{t:.2f}' for t in times)} s; "
+                     f"bdt-client CLI success in {client_s:.2f} s wall, result image saved; SIGTERM: "
                      f"{[s for s in log if s.startswith(('signal', 'drained'))]}, exit 0")
 
 
@@ -927,21 +1166,25 @@ def main() -> int:
     phase_engine(pipe)
     phase_blocked(pipe)
     phase_sweep(pipe)
+    phase_int_mm()
+    int_mm_calls = phase_int8(pipe)
     del pipe
     torch.cuda.empty_cache()
     import tempfile
 
     with tempfile.TemporaryDirectory(dir=here) as work:
-        for phase in (phase_predict_cli, phase_serve_cli, phase_augment_cli):
+        for phase in (phase_predict_cli, phase_serve_cli, phase_augment_cli, phase_h5):
             sub = os.path.join(work, phase.__name__)
             os.makedirs(sub)
             phase(here, sub)
     phase_train_parity()
     train_launches = phase_train_full()
-    launches["edge_weight_maps"] += train_launches
+    remat_launches = phase_remat()
+    launches["edge_weight_maps"] += train_launches + remat_launches
     phase_train_resume_and_staged()
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; edge-kernel launches: serving path "
-                f"{launches['edge_weight_maps'] - train_launches}, training path {train_launches}")
+                f"{launches['edge_weight_maps'] - train_launches - remat_launches}, training path {train_launches}, "
+                f"remat steps {remat_launches}; torch._int_mm launches on the int8 path {int_mm_calls}")
     kernels = [{
         "name": "edge_weight_maps",
         "route": "cuda",

@@ -10,9 +10,10 @@ files and one JSON line per scene, ``--chunk-scenes`` equal to one chunk,
 shards by ``crc32(file name)`` that are disjoint and exhaustive, equal the
 single run and stay put when a file is added between two shards' runs, bad
 shard arguments exit 2, ``--fast-vote`` is the plain vote of the per-model
-masks, and ``--int8`` is refused.  The serve CLI's flags map onto
-``Pipeline``, ``Config`` and ``ServeConfig`` as the JAX CLI's do, with
-``serve`` and ``Pipeline`` stubbed.
+masks, and ``--int8`` reaches ``Pipeline`` as the JAX CLI's does.  The
+serve CLI's flags, the int8 ones included, map onto ``Pipeline``,
+``Config`` and ``ServeConfig`` as the JAX CLI's do, with ``serve`` and
+``Pipeline`` stubbed.
 """
 import contextlib
 import dataclasses
@@ -201,9 +202,46 @@ def test_predict_cli_fast_vote_is_the_plain_vote(single_run, tmp_path):
         )
 
 
-def test_predict_cli_refuses_int8(tmp_path, capsys):
-    assert predict_cli.main(["--image", "x.png", "--out", str(tmp_path), "--int8", "--device", "cpu"]) == 2
-    assert "slice 3" in capsys.readouterr().err
+class _Stop(Exception):
+    pass
+
+
+def predict_calls(monkeypatch, tmp_path, extra):
+    """(port, JAX) ``Pipeline`` kwargs of one predict CLI run over three
+    scenes, ``Pipeline`` stubbed to stop the run once called."""
+    import importlib
+
+    img_dir = tmp_path / "int8_scenes"
+    if not img_dir.exists():
+        img_dir.mkdir()
+        for i, img in enumerate(scenes(40, [(40, 50), (60, 30), (40, 50)])):
+            jax_uio.imwrite(str(img_dir / f"s{i}.png"), img)
+    monkeypatch.setattr(importlib.import_module("building_detection_tpu.core.runtime"),
+                        "enable_compilation_cache", lambda *a, **k: None)
+    calls = {}
+    for package, device in (("building_detection_tpu_torch", ["--device", "cpu"]), ("building_detection_tpu", [])):
+        def record(_package=package, **kwargs):
+            calls[_package] = kwargs
+            raise _Stop
+
+        monkeypatch.setattr(importlib.import_module(f"{package}.infer.pipeline"), "Pipeline", record)
+        with pytest.raises(_Stop):
+            importlib.import_module(f"{package}.cli.predict").main(
+                ["--image-dir", str(img_dir), "--out", str(tmp_path / "out")] + extra + device)
+    return calls["building_detection_tpu_torch"], calls["building_detection_tpu"]
+
+
+def test_predict_cli_refuses_int8(tmp_path, monkeypatch):
+    """``--int8`` is ported: the first two scenes of the shard calibrate,
+    ``int8_pointwise=512``, as in the JAX CLI."""
+    got, want = predict_calls(monkeypatch, tmp_path, ["--int8"])
+    assert got["int8_pointwise"] == want["int8_pointwise"] == 512
+    assert len(got["int8_calibration"]) == len(want["int8_calibration"]) == 2
+    for a, b in zip(got["int8_calibration"], want["int8_calibration"]):
+        np.testing.assert_array_equal(a, b)
+    got, want = predict_calls(monkeypatch, tmp_path, [])
+    assert got["int8_pointwise"] is want["int8_pointwise"] is False
+    assert got["int8_calibration"] is want["int8_calibration"] is None
 
 
 # -- the serve CLI ----------------------------------------------------------------------
@@ -260,9 +298,27 @@ def test_serve_cli_maps_flags_like_jax(monkeypatch, tmp_path, argv):
 
 @pytest.mark.parametrize("flag", [["--int8"], ["--int8-scales", "s.json"], ["--int8-calibration-dir", "d"]],
                          ids=["int8", "int8_scales", "int8_calibration_dir"])
-def test_serve_cli_refuses_int8(flag, capsys):
-    assert serve_cli.main(flag + ["--device", "cpu"]) == 2
-    assert "slice 3" in capsys.readouterr().err
+def test_serve_cli_refuses_int8(flag, monkeypatch, tmp_path):
+    """The int8 flags are ported and reach ``Pipeline`` as in the JAX CLI:
+    alone, ``--int8`` serves with dynamic scales; with it, a scales file
+    (either package's JSON) or the first four images of a directory."""
+    scales = {"bam": {"separable_conv2d_20": 2.5}}
+    (tmp_path / "s.json").write_text(json.dumps(scales))
+    (tmp_path / "d").mkdir()
+    for i, (img,) in enumerate(scenes(30 + i, [(40, 50)]) for i in range(5)):
+        jax_uio.imwrite(str(tmp_path / "d" / f"c{i}.png"), img)
+    argv = [a if a == flag[0] else str(tmp_path / a) for a in flag]
+    for argv in (argv, ["--int8"] + argv if flag[0] != "--int8" else argv):
+        got, _ = serve_calls(monkeypatch, "building_detection_tpu_torch", argv + ["--device", "cpu"])
+        want, _ = serve_calls(monkeypatch, "building_detection_tpu", argv)
+        assert got["int8_pointwise"] == want["int8_pointwise"]
+        assert got["int8_scales"] == want["int8_scales"]
+        assert (got["int8_calibration"] is None) == (want["int8_calibration"] is None)
+        for a, b in zip(got["int8_calibration"] or [], want["int8_calibration"] or []):
+            np.testing.assert_array_equal(a, b)
+    assert got["int8_pointwise"] == 512
+    assert got["int8_scales"] == (scales if "--int8-scales" in flag else None)
+    assert len(got["int8_calibration"] or []) == (4 if "--int8-calibration-dir" in flag else 0)
 
 
 def test_fused_predictor_vote_default_is_three_of_five():

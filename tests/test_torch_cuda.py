@@ -1,7 +1,8 @@
 """PyTorch port on a CUDA card: the edge-weight kernel against its plain twin,
 ``normalize``, the fused predictor, the per-model engine and the blocked
-path on the card against the CPU, and a full-width ``Trainer`` step, which
-launches the kernel once.
+path on the card against the CPU, a full-width ``Trainer`` step, which
+launches the kernel once, ``torch._int_mm`` and the int8 predictor against
+the CPU, and a ``remat`` step against a plain one.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -166,3 +167,67 @@ def test_full_width_train_step_on_card(cuda, dtype):
     assert K.edge_weight_maps.launches == before + 2
     assert all(np.isfinite(losses))
     assert all(p.dtype == torch.float32 and p.is_cuda for p in tr.model.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", [(32768, 728, 728), (8, 2048, 256), (1024, 728, 45), (1024, 512, 1), (5, 3, 2)],
+                         ids=["xception_site", "pool_rows", "bam_45", "scse_1", "all_padded"])
+def test_int8_matmul_on_card_is_int_mm_and_exact(cuda, mkn):
+    """``torch._int_mm`` (padded where the shape needs it) equals the int32
+    twin bit for bit, and is what runs: one counted launch a call."""
+    m, k, n = mkn
+    rng = np.random.RandomState(m + k + n)
+    a = torch.from_numpy(rng.randint(-127, 128, (m, k)).astype(np.int8))
+    wq = torch.from_numpy(rng.randint(-127, 128, (n, k)).astype(np.int8))
+    before = L.int8_matmul.calls
+    got = L.int8_matmul(a.to(cuda), wq.to(cuda).t())
+    assert L.int8_matmul.calls == before + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), L.int8_matmul_plain(a, wq.t()))
+
+
+@pytest.mark.cuda
+def test_int8_predictor_on_card_matches_cpu(cuda):
+    """The tiny members' 1x1 heads quantized with fixed scales: the card's
+    masks equal the CPU's (f32, TF32 off), and every chunk went through
+    ``_int_mm``."""
+    cfg = TilerConfig(tile=64, stride=48, overlap=16)
+    imgs = scenes(12, [(200, 260), (150, 140)])
+    scales = {n: {"conv2d_1": 1.0 + 0.25 * i} for i, n in enumerate(NAMES)}
+    want = FusedEnsemblePredictor(tiny_members(), cfg, 4, torch.float32, "cpu", int8_pointwise=True,
+                                  int8_scales=scales).predict_masks_many(imgs)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    before = L.int8_matmul.calls
+    try:
+        got = FusedEnsemblePredictor(tiny_members(), cfg, 4, torch.float32, cuda, int8_pointwise=True,
+                                     int8_scales=scales).predict_masks_many(imgs)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert L.int8_matmul.calls > before and (L.int8_matmul.calls - before) % len(NAMES) == 0
+    for g, w in zip(got, want):
+        for name in NAMES:
+            np.testing.assert_array_equal(g[name], w[name])
+
+
+@pytest.mark.cuda
+def test_remat_train_step_on_card_equals_plain(cuda):
+    """scse at 256x256, batch 2, f32 with TF32 off and deterministic cuDNN:
+    a remat step equals a plain one bit for bit."""
+    rng = np.random.RandomState(1)
+    imgs = rng.randint(0, 256, (2, 256, 256, 3)).astype(np.uint8)
+    labs = np.where(rng.rand(2, 256, 256) < 0.3, 255, 0).astype(np.uint8)
+    cfg = TrainConfig(batch_size=2, image_size=256, warmup_epochs=0)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        False, True, False)
+    try:
+        runs = []
+        for remat in (False, True):
+            tr = Trainer("scse", cfg, device=cuda, remat=remat)
+            runs.append((tr.train_on_batch(imgs, labs), [p.detach().cpu() for p in tr.model.parameters()]))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    (m0, p0), (m1, p1) = runs
+    assert m0 == m1
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))

@@ -187,13 +187,28 @@ def test_predictor_owns_its_model(variables):
 
 
 def test_multi_device_and_int8_options_are_refused(variables):
+    """The multi-device options are still refused (slice 3).  int8 pointwise
+    convs are ported: the options reach every layer of the owned models, and
+    the int8 engine gives the JAX int8 engine's masks on the same scales."""
     model = port_model(*variables)
-    for kwargs in ({"mesh": object()}, {"tp": True}, {"int8_pointwise": True}, {"int8_scales": {"a": 1.0}}):
+    for kwargs in ({"mesh": object()}, {"tp": True}):
         with pytest.raises(NotImplementedError, match="slice 3"):
             TiledPredictor(model, CFG, 4, torch.float32, "cpu", **kwargs)
+    for kwargs in ({"int8_pointwise": True}, {"int8_scales": {"conv2d_1": 1.5}}):
+        pred = TiledPredictor(port_model(*variables), CFG, 4, torch.float32, "cpu", **kwargs)
+        layers = {m.jax_name: m for m in pred.model.modules() if hasattr(m, "jax_name")}
+        assert all(m.int8_pointwise is kwargs.get("int8_pointwise", False) for m in layers.values())
+        assert layers["conv2d_1"].int8_scale == kwargs.get("int8_scales", {}).get("conv2d_1")
+        assert layers["conv2d"].int8_scale is None
     with pytest.raises(NotImplementedError, match="slice 3"):
         EnsemblePredictor(tiny_members(), CFG, 4, torch.float32, devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        EnsemblePredictor(tiny_members(), CFG, 4, torch.float32, "cpu", int8_pointwise=True)
+    scales = {n: {"conv2d_1": 1.0 + 0.25 * i} for i, n in enumerate(NAMES)}
+    ens = EnsemblePredictor(tiny_members(), CFG, 4, torch.float32, "cpu", int8_pointwise=True, int8_scales=scales)
+    jax_ens = JaxEnsemble({n: (tiny_member, *tiny_variables(i)) for i, n in enumerate(NAMES)}, JCFG, 4,
+                          jnp.float32, int8_pointwise=True, int8_scales=scales)
+    (img,) = scenes(11, [(70, 90)])
+    got, want = ens.predict_masks(img), jax_ens.predict_masks(img)
+    for name in NAMES:
+        np.testing.assert_array_equal(got[name], want[name])
     one = EnsemblePredictor(tiny_members(), CFG, 4, torch.float32, devices=["cpu"])
     assert all(p.device.type == "cpu" for p in one.predictors.values())

@@ -6,8 +6,10 @@ JAX package, and its entry points run on the card unless asked for the CPU.
   ``make_targets``, a ``Pipeline`` over tiny members (fusion and polygons
   included), the geometry on both of its paths, a ``Trainer`` (augmented
   steps, the staged epoch, save and restore), the per-model engine and the
-  blocked path, and the predict, serve and augment CLIs as far as they need
-  no image file, run end to end on the CPU.
+  blocked path, int8 pointwise convs (calibration, fused and per-model),
+  ``bdt-convert``'s refusals, ``bdt-client`` against the port's server, and
+  the predict, serve and augment CLIs as far as they need no image file,
+  run end to end on the CPU.
 * No file of the port, and not ``chip_smoke.py``, imports the JAX package
   (an AST scan, which also sees imports inside functions).
 * ``Pipeline()``, ``FusedEnsemblePredictor``, ``Trainer``,
@@ -125,7 +127,6 @@ SCRIPT = textwrap.dedent(
         for sub in ("img", "lab"):
             os.mkdir(os.path.join(d, sub))
         assert predict_cli.main(["--image-dir", os.path.join(d, "img"), "--out", d, "--device", "cpu"]) == 2
-        assert predict_cli.main(["--image", "x.png", "--out", d, "--int8"]) == 2
         assert augment_cli.main(["--images", os.path.join(d, "img"), "--labels", os.path.join(d, "lab"),
                                  "--out-images", os.path.join(d, "oi"), "--out-labels", os.path.join(d, "ol"),
                                  "--split-dir", os.path.join(d, "split"), "--seed", "0"]) == 0
@@ -134,6 +135,64 @@ SCRIPT = textwrap.dedent(
         assert serve_cli.main(["--port", "0", "--root-dir", d, "--device", "cpu"]) == 0
         (pipe, cfg, kw), = served
         assert pipe.ensemble.names == ["res34", "hrnet", "v3plus", "scse", "bam"] and kw["port"] == 0
+
+    # int8 pointwise convs: calibration, then the fused and per-model paths
+    from building_detection_tpu_torch.infer.pipeline import calibrate_members_int8
+
+    cfg = Config(tiler=TilerConfig(tile=32, stride=24, overlap=8))
+
+    def one_by_one(seed):
+        return {f"m{i}": init_layers(L.Conv2d(Namer(), 3, 2, 1, activation="softmax").eval(),
+                                     torch.Generator().manual_seed(seed + i)) for i in range(5)}
+
+    scales = calibrate_members_int8(one_by_one(20), [img], cfg, torch.float32, True)
+    assert set(scales) == {"m0", "m1", "m2", "m3", "m4"} and all(set(v) == {"conv2d"} for v in scales.values())
+    fused = FusedEnsemblePredictor(one_by_one(20), cfg.tiler, 4, torch.float32, "cpu", int8_pointwise=True,
+                                   int8_scales=scales)
+    per_model = EnsemblePredictor(one_by_one(20), cfg.tiler, 4, torch.float32, "cpu", int8_pointwise=True,
+                                  int8_scales=scales)
+    a, b = fused.predict_masks(img), per_model.predict_masks(img)
+    assert all((a[n] == b[n]).all() for n in a)
+
+    # bdt-convert refuses a wrong-model npz and two files of one kind
+    from building_detection_tpu_torch.cli import convert as convert_cli
+    from building_detection_tpu_torch.core.module import jax_variables
+    from building_detection_tpu_torch.train.checkpoint import save_variables
+
+    with tempfile.TemporaryDirectory() as d:
+        save_variables(os.path.join(d, "tiny.npz"), *jax_variables(Tiny()))
+        for argv, said in ((["scse", os.path.join(d, "tiny.npz"), os.path.join(d, "x.h5")], "does not match model"),
+                           (["scse", os.path.join(d, "tiny.npz"), os.path.join(d, "y.npz")], "exactly one")):
+            try:
+                convert_cli.main(argv)
+            except SystemExit as e:
+                assert said in str(e), e
+            else:
+                raise AssertionError("bdt-convert took " + " ".join(argv))
+
+    # bdt-client against the port's server on 127.0.0.1 (no PIL here: the
+    # upload cannot be decoded, so the answer is NG, which the client reports)
+    import threading
+    from http.server import ThreadingHTTPServer
+    from building_detection_tpu_torch.serve import client
+
+    with tempfile.TemporaryDirectory() as d:
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler(server.DetectionService(engine, cfg, root_dir=d)))
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            path = os.path.join(d, "up.png")
+            with open(path, "wb") as f:
+                f.write(b"not decodable here")
+            url = f"http://127.0.0.1:{httpd.server_address[1]}/photo"
+            answer = client.detect(path, url=url)
+            assert set(answer) == {"status", "data", "points", "error"} and answer["status"] == "NG", answer
+            assert client.main([path, "--url", url]) == 1
+            assert client.local_client_id("127.0.0.1") == "127_0_0_1"
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
     for mod in ("jax", "PIL", "cv2", "building_detection_tpu"):
         assert sys.modules[mod] is None, mod
     assert not [m for m in sys.modules if m.startswith("building_detection_tpu.")]

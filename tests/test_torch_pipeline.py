@@ -116,13 +116,22 @@ def test_loads_jax_checkpoints(tmp_path):
 
 
 def test_later_features_are_refused(port, tmp_path):
-    """``.h5`` weights and int8 are still refused; ``fused=False`` (the
-    per-model engine) and scenes over ``max_scene_tiles`` (the blocked
-    path) now work and give the fused whole-scene masks."""
-    with pytest.raises(NotImplementedError, match="int8"):
-        Pipeline(models=(), int8_pointwise=True, device="cpu")
-    with pytest.raises(NotImplementedError, match=".h5"):
-        Pipeline({"scse": str(tmp_path / "scse.h5")}, models=("scse",), device="cpu")
+    """Nothing here is refused any more: int8 pointwise convs and ``.h5``
+    weights load (``test_torch_int8.py``, ``test_torch_h5.py`` hold them
+    against the JAX package), and ``fused=False`` (the per-model engine) and
+    scenes over ``max_scene_tiles`` (the blocked path) give the fused
+    whole-scene masks."""
+    int8 = Pipeline(models=(), int8_pointwise=True, int8_scales={}, device="cpu")
+    assert int8.int8_scales == {}
+    from building_detection_tpu_torch.train.checkpoint import export_h5_weights
+
+    params, state = jax_variables(init_model("scse", torch.Generator().manual_seed(2)))
+    export_h5_weights(str(tmp_path / "scse.h5"), params, state)
+    h5 = Pipeline({"scse": str(tmp_path / "scse.h5")}, models=("scse",), compute_dtype=torch.float32, device="cpu")
+    got_p, got_s = jax_variables(h5.ensemble.models["scse"])
+    assert set(got_p) == set(params) and not got_s and not state
+    for k in params:
+        np.testing.assert_array_equal(got_p[k], params[k])
     from building_detection_tpu_torch.infer.engine import EnsemblePredictor
 
     engine = Pipeline(models=("scse",), cfg=CFG, compute_dtype=torch.float32, device="cpu", fused=False)

@@ -7,9 +7,9 @@
   (with a visit order, and with on-device augmentation), ``fit_arrays``
   staged equals streamed, and ``fit_arrays`` plus ``restore`` resumes the
   fit history;
-* weights-only loading, the refusals (multi-device, ``remat``, ``.h5``, a
-  missing card), the prefetcher, the epoch visualiser and the two CLIs on a
-  tiny on-disk dataset.
+* weights-only loading (``.npz`` and Keras ``.h5``), ``remat=True``, the
+  refusals (multi-device, a missing card), the prefetcher, the epoch
+  visualiser and the two CLIs on a tiny on-disk dataset.
 
 The JAX comparison runs at 16 px over a few steps, where f32 noise stays
 far below the 1e-5 relative tolerance.
@@ -185,8 +185,16 @@ def test_load_weights_keeps_optimizer_fresh(tmp_path):
     assert_same_model(src, dst)
     assert dst.step == 0 and dst.optimizer.count == 0
     assert all(float(v.abs().max()) == 0.0 for v in dst.optimizer.mu.values())
-    with pytest.raises(NotImplementedError, match="h5"):
-        dst.load_weights(str(tmp_path / "w.h5"))
+    # a Keras .h5 of the same weights, imported strictly
+    from building_detection_tpu_torch.train.checkpoint import export_h5_weights
+
+    export_h5_weights(str(tmp_path / "w.h5"), *jax_variables(src.model))
+    from_h5 = trainer(seed=4)
+    from_h5.load_weights(str(tmp_path / "w.h5"))
+    assert_same_model(src, from_h5)
+    assert from_h5.step == 0 and from_h5.optimizer.count == 0
+    with pytest.raises(ValueError, match="strict .h5 import failed"):
+        Trainer("scse", CFG, device="cpu").load_weights(str(tmp_path / "w.h5"))
 
 
 def test_bf16_compute_keeps_f32_masters():
@@ -200,8 +208,18 @@ def test_bf16_compute_keeps_f32_masters():
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"tp": True}, {"remat": True}], ids=["mesh", "tp", "remat"])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        trainer(**kw)
+    """Multi-device training is refused; ``remat=True`` is ported and a
+    step with it equals a plain step (``test_torch_remat.py`` holds the five
+    members)."""
+    if "remat" not in kw:
+        with pytest.raises(NotImplementedError):
+            trainer(**kw)
+        return
+    imgs, labs = tiny_data(13)
+    tr, plain = trainer(**kw), trainer()
+    assert tr.model.remat is True and plain.model.remat is False
+    assert tr.train_on_batch(imgs, labs) == plain.train_on_batch(imgs, labs)
+    assert_same_model(tr, plain)
 
 
 def test_missing_card_raises():
