@@ -1,4 +1,4 @@
-"""Training CLI of the port: ``bdt-train`` on one device.
+"""Training CLI of the port: ``bdt-train``, on one device or data-parallel over processes.
 
     python -m building_detection_tpu_torch.cli.train res34 \\
         --train-images data/train/img --train-labels data/train/lab \\
@@ -7,9 +7,16 @@
 The flags are ``building_detection_tpu/cli/train.py``'s, with ``--device``
 added.  A dataset that fits the host budget is decoded up front and handed
 to :meth:`Trainer.fit_arrays` (staged on the device when it fits there);
-a larger one streams from disk through :meth:`Trainer.fit`.  The
-multi-process flags and ``--data-parallel`` above 1 are refused until the
-port trains on several devices.
+a larger one streams from disk through :meth:`Trainer.fit`.
+
+Data-parallel training runs one process per device, each with the same
+arguments plus ``--coordinator HOST:PORT --num-processes N --process-id I``
+(or under ``torchrun --nproc-per-node N`` with ``--num-processes 0``).  The
+backend follows ``--device``: NCCL for cards (rank ``i`` on the card of its
+local rank), Gloo for ``--device cpu``.  Each process decodes only its rows
+of every global batch, the gradients and the BatchNorm statistics are
+reduced over all processes, and process 0 alone writes checkpoints and
+history.
 """
 from __future__ import annotations
 
@@ -55,8 +62,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shuffle-seed", type=int, default=0)
     p.add_argument("--precision", choices=["bf16", "f32"], default="bf16", help="compute dtype of the step")
     p.add_argument("--device", default="cuda", help="torch device to train on (no fallback)")
-    p.add_argument("--data-parallel", type=int, default=-1, help="devices on the data axis (1 here)")
-    p.add_argument("--coordinator", help="multi-process training: not ported yet")
+    p.add_argument(
+        "--data-parallel", type=int, default=-1,
+        help="processes on the data axis (-1: all, capped at gcd(batch size, processes))",
+    )
+    p.add_argument(
+        "--coordinator",
+        help="multi-process training: host:port of process 0's rendezvous; launch one bdt-train per device with "
+        "identical arguments plus --num-processes/--process-id (--num-processes 0 reads the torchrun "
+        "environment); each process decodes only its rows of the dataset, process 0 writes the checkpoints",
+    )
     p.add_argument("--num-processes", type=int)
     p.add_argument("--process-id", type=int)
     return p
@@ -80,16 +95,57 @@ def decode_all(pairs, image_size: int):
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    if args.coordinator or args.num_processes is not None or args.process_id is not None:
-        raise NotImplementedError("multi-process training is slice 3 of the port")
-    if args.data_parallel not in (-1, 1):
-        raise NotImplementedError("data-parallel training over several devices is slice 3 of the port")
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    multi = args.coordinator is not None or args.num_processes is not None or args.process_id is not None
+    if multi and args.num_processes != 0 and None in (args.coordinator, args.num_processes, args.process_id):
+        parser.error(
+            "multi-process training takes --coordinator HOST:PORT, --num-processes N and --process-id I "
+            "together (or --num-processes 0 under torchrun)"
+        )
 
+    import torch
+
+    from building_detection_tpu_torch.parallel import distributed as pdist
+
+    if multi:
+        backend = "nccl" if torch.device(args.device).type == "cuda" else "gloo"
+        if args.num_processes == 0:
+            pdist.init_distributed(backend=backend)
+        else:
+            pdist.init_distributed(args.coordinator, args.num_processes, args.process_id, backend=backend)
+    try:
+        return train(args)
+    finally:
+        pdist.destroy()
+
+
+def local_pairs(pairs, batch_size: int, trainer, verb: str):
+    """This process's share of ``pairs`` under a multi-process mesh (its rows
+    of every complete global batch), announced as ``process i: <verb> n
+    samples``; all of ``pairs`` otherwise."""
+    from building_detection_tpu_torch.parallel import distributed as pdist
+
+    mesh = trainer.mesh
+    if mesh.world_size == 1:
+        return pairs
+    idx = pdist.local_sample_indices(len(pairs), batch_size, mesh)
+    if len(idx) == 0:
+        raise SystemExit(
+            f"multi-process training needs at least one complete global batch ({batch_size} samples; got "
+            f"{len(pairs)}) and every process must own rows of the data axis"
+        )
+    print(f"process {mesh.rank}: {verb} {len(idx)} samples", flush=True)
+    return [pairs[i] for i in idx]
+
+
+def train(args) -> int:
     import torch
 
     from building_detection_tpu_torch.core.config import TrainConfig
     from building_detection_tpu_torch.data.dataset import batch_iterator, list_pairs, prefetch
+    from building_detection_tpu_torch.parallel import distributed as pdist
+    from building_detection_tpu_torch.parallel.mesh import make_mesh
     from building_detection_tpu_torch.train.trainer import Trainer
 
     cfg = TrainConfig(
@@ -106,6 +162,7 @@ def main(argv=None) -> int:
         args.model,
         cfg,
         steps_per_epoch=max(len(train_pairs) // cfg.batch_size, 1),
+        mesh=make_mesh(data=args.data_parallel, batch_size=cfg.batch_size),
         compute_dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
         augment=args.augment_seed is not None,
         augment_seed=args.augment_seed or 0,
@@ -129,23 +186,29 @@ def main(argv=None) -> int:
     # Host memory ceiling for decoding the whole dataset up front; past it,
     # stream from disk per step.  BDT_HOST_DECODE_BUDGET overrides (bytes).
     host_budget = int(os.environ.get("BDT_HOST_DECODE_BUDGET", 16 << 30))
+    multi = trainer.mesh.world_size > 1
     if len(train_pairs) * (cfg.image_size ** 2) * 4 <= host_budget:
-        images, labels = decode_all(train_pairs, cfg.image_size)
+        images, labels = decode_all(local_pairs(train_pairs, cfg.batch_size, trainer, "feeding"), cfg.image_size)
         val_images, val_labels = decode_all(val_pairs, cfg.image_size) if val_pairs else (None, None)
         trainer.fit_arrays(
             images, labels, val_images, val_labels, checkpoint_dir=args.checkpoint_dir,
-            shuffle=args.shuffle, shuffle_seed=args.shuffle_seed,
+            shuffle=args.shuffle, shuffle_seed=args.shuffle_seed, from_process_local=multi,
         )
         return 0
 
+    # streamed: each process reads only its rows of every global batch; the
+    # per-pass shuffle stays aligned across processes (every local list has
+    # the same length, so the seeded permutation is the same on all of them)
+    stream_pairs = local_pairs(train_pairs, cfg.batch_size, trainer, "streaming")
+    stream_batch = len(pdist._owned_rows(trainer.mesh, cfg.batch_size))
     train_iter = prefetch(batch_iterator(
-        train_pairs, cfg.batch_size, cfg.image_size, shuffle=args.shuffle, seed=args.shuffle_seed
+        stream_pairs, stream_batch, cfg.image_size, shuffle=args.shuffle, seed=args.shuffle_seed
     ))
     val_iter, val_steps = None, 0
     if val_pairs:
         val_iter = batch_iterator(val_pairs, cfg.batch_size, cfg.image_size)
         val_steps = max(len(val_pairs) // cfg.batch_size, 1)
-    trainer.fit(train_iter, val_iter, val_steps, checkpoint_dir=args.checkpoint_dir)
+    trainer.fit(train_iter, val_iter, val_steps, checkpoint_dir=args.checkpoint_dir, from_process_local=multi)
     return 0
 
 

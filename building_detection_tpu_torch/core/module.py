@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Dict, Iterable, Iterator, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, Iterator, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -115,9 +115,15 @@ class KerasLayer(nn.Module):
     ``int8_pointwise``, ``int8_scale`` and ``int8_amax`` are the int8
     serving opt-in of the conv layers (:func:`set_int8`,
     :func:`calibrate_int8`); they are off unless set.
+
+    ``data_group`` (set by :func:`set_data_group`) is the process group
+    whose ranks hold the other rows of a data-parallel batch: train-mode
+    BatchNorm takes its statistics over all of them.  ``None`` (one
+    process, or world size 1) reduces over the local batch only.
     """
 
     compute_dtype: Optional[torch.dtype] = None
+    data_group: Optional[Any] = None
     int8_pointwise: Union[bool, int] = False
     int8_scale: Optional[float] = None
     int8_amax: Optional[Dict[str, torch.Tensor]] = None
@@ -326,6 +332,17 @@ def calibrate_int8(
         for m, (flag, scale) in zip(layers, saved):
             m.int8_pointwise, m.int8_scale = flag, scale
     return {site: float(v) for site, v in amax.items()}
+
+
+def set_data_group(model: nn.Module, group) -> nn.Module:
+    """Make train-mode BatchNorm in ``model`` normalise with the statistics
+    of the global batch whose rows the ranks of ``group`` hold (the JAX
+    step's ``jnp.mean``/``jnp.var`` over the sharded batch); ``None``
+    restores the local batch."""
+    for layer in model.modules():
+        if isinstance(layer, KerasLayer):
+            layer.data_group = group
+    return model
 
 
 def set_remat(model: nn.Module, on: bool = True) -> nn.Module:

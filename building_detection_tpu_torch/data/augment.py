@@ -123,9 +123,20 @@ def augment_batch(
     augment_seed: int,
     step: int,
     cfg: AugmentConfig = AugmentConfig(),
+    shard: Tuple[int, int] = (0, 1),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The batch of global step ``step`` under ``augment_seed``."""
-    return apply_augment(images, labels, draw_decisions(images.shape[0], augment_seed, step, cfg), cfg)
+    """The batch of global step ``step`` under ``augment_seed``.
+
+    ``shard=(rank, data)``: the batch is rank ``rank``'s rows of a global
+    batch split in ``data`` equal parts.  The decisions are drawn for the
+    global batch and the rank's rows taken, so each rank augments its rows
+    as one process augments the whole batch."""
+    rank, data = shard
+    n = images.shape[0]
+    decisions = draw_decisions(n * data, augment_seed, step, cfg)
+    if data > 1:
+        decisions = Decisions(*(t[rank * n : (rank + 1) * n] for t in decisions))
+    return apply_augment(images, labels, decisions, cfg)
 
 
 # ---------------------------------------------------------------------------

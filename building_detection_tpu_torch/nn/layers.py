@@ -45,6 +45,7 @@ from building_detection_tpu_torch.core.module import (
     ones,
     zeros,
 )
+from building_detection_tpu_torch.parallel.collectives import global_moments
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -363,6 +364,10 @@ class BatchNorm(KerasLayer):
     ``F.batch_norm`` always applies the factor, so it is not used here.
     When :func:`stage` recomputes a segment for the backward,
     ``update_moving`` is off: the moving statistics move once a step.
+    Under a data group (:func:`core.module.set_data_group`) the mean and
+    variance are the global batch's, all-reduced across the ranks
+    (:func:`parallel.collectives.global_moments`), and ``n`` of the Bessel
+    factor is the global count.
     """
 
     update_moving = True
@@ -387,8 +392,11 @@ class BatchNorm(KerasLayer):
         x = x.to(gamma.dtype)
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            var, mean = torch.var_mean(x.float(), dim=axes, correction=0)
-            n = x.numel() // x.shape[-1]
+            if self.data_group is None:
+                var, mean = torch.var_mean(x.float(), dim=axes, correction=0)
+                n = x.numel() // x.shape[-1]
+            else:
+                mean, var, n = global_moments(x.float(), axes, self.data_group)
             bessel = n / (n - 1) if x.dim() == 4 and n > 1 else 1.0
             if self.update_moving:
                 with torch.no_grad():

@@ -22,9 +22,25 @@ param is cast where it is used, so gradients land on the f32 params).
 one step body, so on one device the two paths give the same bits.
 
 ``remat=True`` rematerialises the forward stage by stage
-(:func:`nn.layers.stage`); the numbers do not change.  Not ported yet, and
-refused with ``NotImplementedError``: ``mesh`` and ``tp`` (multi-device
-training).
+(:func:`nn.layers.stage`); the numbers do not change.
+
+``mesh`` (:func:`parallel.mesh.make_mesh`) trains data-parallel over the
+processes of a ``torch.distributed`` run, one device each, as the JAX
+package's ``Trainer(mesh=...)`` does over a mesh's data axis:
+
+* every rank builds the same weights from the same seed, checked equal by
+  one broadcast at set-up (:func:`parallel.mesh.replicate`);
+* host batches are the global batch on every rank, and each rank takes its
+  rows; staged datasets and the prefetcher hold only those rows;
+* augmentation draws its decisions for the global batch and takes the
+  rank's rows, train-mode BatchNorm normalises with the global batch's
+  statistics, the gradients are averaged over the ranks by one all-reduce
+  before Keras Adam, and the metrics come from the global confusion counts;
+* only the primary (rank 0) writes checkpoints and ``history.json``.
+
+At ``data == 1`` (no process group, or world size 1) no collective runs and
+the step is the single-device step bit for bit.  ``tp`` (channel tensor
+parallelism) is not ported yet, and refused with ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,6 +61,7 @@ from building_detection_tpu_torch.core.module import (
     jax_variables,
     load_jax_variables,
     set_compute_dtype,
+    set_data_group,
     set_remat,
 )
 from building_detection_tpu_torch.data.augment import augment_batch
@@ -52,6 +69,9 @@ from building_detection_tpu_torch.data.prefetch import device_prefetch
 from building_detection_tpu_torch.models.registry import build_model
 from building_detection_tpu_torch.ops import tiling as T
 from building_detection_tpu_torch.ops.morphology import edge_weight_maps
+from building_detection_tpu_torch.parallel import collectives
+from building_detection_tpu_torch.parallel import distributed as pdist
+from building_detection_tpu_torch.parallel import mesh as pmesh
 from building_detection_tpu_torch.train import checkpoint as ckpt
 from building_detection_tpu_torch.train.losses import LOSSES
 from building_detection_tpu_torch.train.metrics import all_metrics
@@ -81,15 +101,35 @@ def make_targets(
 Metrics = Dict[str, torch.Tensor]
 
 
+def _resolve_device(device, mesh: pmesh.Mesh) -> torch.device:
+    """The trainer's device: ``device`` if given, else the mesh's, else the
+    card (the current CUDA device, the one ``init_distributed`` selected).
+    A ``device`` the mesh contradicts (another device than the one it pins,
+    or anything but a card under NCCL) raises, as a card torch cannot see
+    does."""
+    dev = torch.device(device) if device is not None else (mesh.device or torch.device("cuda"))
+    check_device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    pinned = mesh.device
+    if pinned is not None and pinned.type == "cuda" and pinned.index is None and dev.type == "cuda":
+        pinned = dev  # the mesh pins a card, not which one
+    if pinned is not None and dev != pinned:
+        raise ValueError(f"device {dev} contradicts the mesh's device {mesh.device}")
+    if mesh.backend == "nccl" and dev.type != "cuda":
+        raise ValueError(f"device {dev} cannot train under the mesh's NCCL process group (cards only)")
+    return dev
+
+
 class Trainer:
-    """One model trained on one ``device``: the card by default, or
-    ``'cpu'``.
+    """One model trained on one ``device``: the mesh's, else the card, or
+    ``'cpu'`` when asked; data-parallel over the ranks of ``mesh``.
 
     ``model_name`` is a registry name or a callable returning a model built
     from the port's layers (its weights are drawn with
     ``torch.Generator().manual_seed(seed)``).  There is no fallback: asking
-    for a card that is not there raises.  ``augment`` is ``True`` or an
-    ``AugmentConfig``.
+    for a card that is not there raises, and so does a ``device`` the mesh
+    contradicts.  ``augment`` is ``True`` or an ``AugmentConfig``.
     """
 
     def __init__(
@@ -104,18 +144,27 @@ class Trainer:
         augment=None,
         augment_seed: int = 0,
         tp: bool = False,
-        device: Union[str, torch.device] = "cuda",
+        device: Union[None, str, torch.device] = None,
     ):
-        if mesh is not None or tp:
-            raise NotImplementedError("multi-device and tensor-parallel training are slice 3 of the port")
-        self.device = torch.device(device)
-        check_device(self.device)
+        if mesh is None:
+            mesh = pmesh.Mesh(1, 1, 0, 1)  # this process alone, whatever process group exists
+        elif not isinstance(mesh, pmesh.Mesh):
+            raise TypeError(
+                f"mesh must be a building_detection_tpu_torch.parallel.mesh.Mesh (from make_mesh), "
+                f"got {type(mesh).__name__}"
+            )
+        if tp:
+            raise NotImplementedError("channel tensor-parallel training (tp=True) is not ported yet")
+        self.mesh = mesh
+        self.device = _resolve_device(device, mesh)
         if isinstance(model_name, str):
             self.model_name, model = model_name, build_model(model_name)
         else:
             self.model_name, model = getattr(model_name, "__name__", "custom"), model_name()
         init_layers(model, torch.Generator().manual_seed(seed))
-        self.model = set_remat(set_compute_dtype(model.to(self.device), compute_dtype), remat)
+        model = set_remat(set_compute_dtype(model.to(self.device), compute_dtype), remat)
+        self.model = set_data_group(model, mesh.group)
+        pmesh.replicate(list(self.model.state_dict().values()), mesh)
         self.cfg = cfg
         self.steps_per_epoch = steps_per_epoch
         self.compute_dtype = compute_dtype
@@ -138,13 +187,23 @@ class Trainer:
         t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
         return t.to(self.device)
 
+    def _global_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The global batch's loss: the mean of the ranks' equal-sized
+        local means."""
+        if self.mesh.group is None:
+            return loss
+        return collectives.all_reduce_mean([loss.reshape(1)], self.mesh.group)[0].reshape(())
+
     def _train_step(self, images_u8: torch.Tensor, labels_u8: torch.Tensor, step: int) -> Metrics:
-        """The one step body of both paths: augment, normalise, targets,
-        forward in train mode, loss, gradients, Keras Adam; the metrics are
-        of the forward before the update."""
+        """The one step body of both paths, on this rank's rows: augment,
+        normalise, targets, forward in train mode, loss, gradients (averaged
+        over the ranks), Keras Adam; the metrics are of the forward before
+        the update, over the global batch."""
         cfg = self.cfg
         if self.augment_cfg is not None:
-            images_u8, labels_u8 = augment_batch(images_u8, labels_u8, self.augment_seed, step, self.augment_cfg)
+            images_u8, labels_u8 = augment_batch(
+                images_u8, labels_u8, self.augment_seed, step, self.augment_cfg, shard=(self.mesh.rank, self.mesh.data)
+            )
         x = T.normalize(images_u8, dtype=self.compute_dtype)
         y_true = make_targets(labels_u8, cfg, cfg.label_smooth)
         self.model.train()
@@ -152,41 +211,52 @@ class Trainer:
         loss = self.loss_fn(y_true, probs)
         params = self.optimizer.params
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True, materialize_grads=True)
+        if self.mesh.group is not None:
+            grads = collectives.all_reduce_mean(grads, self.mesh.group)
         self.optimizer.step(dict(zip(params, grads)))
         with torch.no_grad():
-            metrics = all_metrics(y_true, probs)
-        metrics["loss"] = loss.detach()
+            metrics = all_metrics(y_true, probs, self.mesh.group)
+            metrics["loss"] = self._global_loss(loss.detach())
         return metrics
 
-    def train_on_batch(self, images_u8, labels_u8, fetch_metrics: bool = True):
-        """One optimizer step on one ``(B, H, W, 3)``/``(B, H, W)`` uint8
-        batch (host arrays or tensors; a staged ``(1, B, ...)`` pair is
-        taken too).  ``fetch_metrics=False`` returns the metrics as 0-d
-        device tensors without waiting for the device."""
-        images, labels = self._to_device(images_u8), self._to_device(labels_u8)
-        if images.dim() == 5:
-            if images.shape[0] != 1:
-                raise ValueError(
-                    f"train_on_batch takes ONE batch (got a staged array of {images.shape[0]} "
-                    "steps — use train_epoch_staged)"
-                )
-            images, labels = images[0], labels[0]
-        metrics = self._train_step(images, labels, self.step)
+    def _step_on(self, images, labels, fetch_metrics: bool):
+        metrics = self._train_step(self._to_device(images), self._to_device(labels), self.step)
         self.step += 1
         if fetch_metrics:
             return {k: float(v) for k, v in metrics.items()}
         return metrics
 
+    def train_on_batch(self, images_u8, labels_u8, fetch_metrics: bool = True):
+        """One optimizer step on one ``(B, H, W, 3)``/``(B, H, W)`` uint8
+        batch (host arrays or tensors; a staged ``(1, B, ...)`` pair is
+        taken too).  Under a mesh every rank passes the global batch and
+        trains on its rows, as the JAX ``shard_batch`` places them.
+        ``fetch_metrics=False`` returns the metrics as 0-d device tensors
+        without waiting for the device."""
+        if np.ndim(images_u8) == 5:
+            if images_u8.shape[0] != 1:
+                raise ValueError(
+                    f"train_on_batch takes ONE batch (got a staged array of {images_u8.shape[0]} "
+                    "steps — use train_epoch_staged)"
+                )
+            images_u8, labels_u8 = images_u8[0], labels_u8[0]
+        images, labels = pmesh.shard_batch((images_u8, labels_u8), self.mesh)
+        return self._step_on(images, labels, fetch_metrics)
+
     @torch.no_grad()
-    def eval_on_batch(self, images_u8, labels_u8) -> Dict[str, float]:
-        """Metrics and loss of the eval-mode model (moving BN statistics)."""
+    def _eval_local(self, images_u8, labels_u8) -> Dict[str, float]:
         x = T.normalize(self._to_device(images_u8), dtype=self.compute_dtype)
         y_true = make_targets(self._to_device(labels_u8), self.cfg, self.cfg.label_smooth)
         self.model.eval()
         probs = self.model(x).float()
-        metrics = all_metrics(y_true, probs)
-        metrics["loss"] = self.loss_fn(y_true, probs)
+        metrics = all_metrics(y_true, probs, self.mesh.group)
+        metrics["loss"] = self._global_loss(self.loss_fn(y_true, probs))
         return {k: float(v) for k, v in metrics.items()}
+
+    def eval_on_batch(self, images_u8, labels_u8) -> Dict[str, float]:
+        """Metrics and loss of the eval-mode model (moving BN statistics)
+        on one global batch (each rank evaluates its rows)."""
+        return self._eval_local(*pmesh.shard_batch((images_u8, labels_u8), self.mesh))
 
     def current_lr(self) -> float:
         return self.schedule(self.step)
@@ -194,7 +264,9 @@ class Trainer:
     # -- staged (device-resident) epochs --------------------------------------
     def stage_dataset(self, images_u8, labels_u8) -> Tuple[torch.Tensor, torch.Tensor]:
         """Upload a dataset once as ``(steps, batch, ...)`` device tensors,
-        dropping the tail that does not fill a batch."""
+        dropping the tail that does not fill a batch.  Under a mesh the
+        arrays are the global dataset and each rank uploads its rows of
+        every batch, ``(steps, batch / data, ...)``."""
         b = self.cfg.batch_size
         steps = len(images_u8) // b
         if steps == 0:
@@ -202,13 +274,14 @@ class Trainer:
         n = steps * b
         imgs = np.asarray(images_u8[:n]).reshape((steps, b) + tuple(images_u8.shape[1:]))
         labs = np.asarray(labels_u8[:n]).reshape((steps, b) + tuple(labels_u8.shape[1:]))
-        return self._to_device(imgs), self._to_device(labs)
+        return self._to_device(pmesh.shard_staged(imgs, self.mesh)), self._to_device(pmesh.shard_staged(labs, self.mesh))
 
     def train_epoch_staged(self, images_dev, labels_dev, fetch_metrics: bool = True, order=None):
-        """One epoch over staged batches; ``order`` (a permutation of
-        ``range(steps)``) is the batch visit order, while the step counter
-        (schedule, augment key) advances in sequence.  Returns the per-step
-        metrics stacked, as numpy arrays when ``fetch_metrics``."""
+        """One epoch over staged batches (this rank's rows of them); ``order``
+        (a permutation of ``range(steps)``, the same on every rank) is the
+        batch visit order, while the step counter (schedule, augment key)
+        advances in sequence.  Returns the per-step metrics stacked, as numpy
+        arrays when ``fetch_metrics``."""
         n = int(images_dev.shape[0])
         if order is None:
             order = np.arange(n, dtype=np.int32)
@@ -234,12 +307,17 @@ class Trainer:
             return None
         return int(torch.cuda.mem_get_info(self.device)[0])
 
-    def should_stage(self, images_u8, labels_u8, headroom: float = 0.6, extra_arrays=()) -> bool:
+    def should_stage(
+        self, images_u8, labels_u8, headroom: float = 0.6, extra_arrays=(), from_process_local: bool = False
+    ) -> bool:
         """Does the dataset (with ``extra_arrays``, e.g. the validation set)
         fit ``headroom`` of the free device memory, leaving the rest to the
-        step?"""
-        need = np.asarray(images_u8).nbytes + np.asarray(labels_u8).nbytes
-        need += sum(np.asarray(a).nbytes for a in extra_arrays if a is not None)
+        step?  A rank stages ``1/data`` of a global array (the JAX
+        ``total_bytes / data`` per device); ``from_process_local`` arrays
+        are that share already."""
+        data = self.mesh.data
+        need = (np.asarray(images_u8).nbytes + np.asarray(labels_u8).nbytes) / (1 if from_process_local else data)
+        need += sum(np.asarray(a).nbytes / data for a in extra_arrays if a is not None)
         free = self._device_bytes_free()
         return True if free is None else need <= headroom * free
 
@@ -248,7 +326,7 @@ class Trainer:
         agg["epoch_seconds"] = time.time() - t0
         self.history.append(agg)
         log_fn(f"epoch {epoch + 1}/{self.cfg.epochs} " + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
-        if checkpoint_dir:
+        if checkpoint_dir and pdist.is_primary():  # one writer: every rank holds the same variables
             self.save(os.path.join(checkpoint_dir, f"epoch_{epoch + 1}_weights.npz"))
             self._write_history(checkpoint_dir)
         return bool(callbacks) and any(cb(self, epoch, agg) for cb in list(callbacks))
@@ -265,6 +343,7 @@ class Trainer:
         stage: str = "auto",
         shuffle: bool = False,
         shuffle_seed: int = 0,
+        from_process_local: bool = False,
     ) -> list:
         """Train on an in-memory uint8 dataset.  ``stage='auto'`` stages it
         on the device when it fits (:meth:`should_stage`) and streams it per
@@ -272,20 +351,34 @@ class Trainer:
         permutes the samples once (seeded), then the batch order every epoch
         (staged) or the samples every pass (streamed), keyed by
         ``(shuffle_seed, epoch index)`` so a resumed run replays the orders;
-        validation stays in order."""
+        validation stays in order.
+
+        ``from_process_local=True`` (multi-process feeding): the arrays hold
+        only this rank's samples, those of
+        :func:`parallel.distributed.local_sample_indices` in its order, and
+        are staged by :func:`parallel.distributed.stage_local_dataset` or
+        streamed in this rank's rows of each batch.  The one-time sample
+        shuffle is skipped (no rank holds the global order), as for the JAX
+        package's pre-staged arrays; the per-epoch orders stay, the same on
+        every rank.  Validation arrays are always global."""
         cfg = self.cfg
-        if shuffle:
+        b_feed = len(pdist._owned_rows(self.mesh, cfg.batch_size)) if from_process_local else cfg.batch_size
+        if shuffle and not from_process_local:
             perm = np.random.RandomState(shuffle_seed).permutation(len(images_u8))
             images_u8, labels_u8 = np.asarray(images_u8)[perm], np.asarray(labels_u8)[perm]
-        self.steps_per_epoch = max(len(images_u8) // cfg.batch_size, 1)
+        self.steps_per_epoch = max(len(images_u8) // b_feed, 1)
         if stage == "auto":
-            use_staged = self.should_stage(images_u8, labels_u8, extra_arrays=(val_images, val_labels))
+            use_staged = self.should_stage(
+                images_u8, labels_u8, extra_arrays=(val_images, val_labels), from_process_local=from_process_local
+            )
+            if self.mesh.group is not None:  # one path for all ranks: staged only where every rank fits it
+                vote = torch.tensor([float(use_staged)], device=self.device)
+                use_staged = float(collectives.all_reduce_mean([vote], self.mesh.group)[0]) == 1.0
         else:
             use_staged = {"staged": True, "stream": False}[stage]
 
         if not use_staged:
-            def cycle(images, labels, do_shuffle=False):
-                b = cfg.batch_size
+            def cycle(images, labels, b, do_shuffle=False):
                 steps = max(len(images) // b, 1)
                 n_pass = self.step // steps  # resume continues the sequence
                 while True:
@@ -300,22 +393,27 @@ class Trainer:
 
             val_iter, val_steps = None, 0
             if val_images is not None:
-                val_iter = cycle(val_images, val_labels)
+                val_iter = cycle(val_images, val_labels, cfg.batch_size)
                 val_steps = max(len(val_images) // cfg.batch_size, 1)
             log_fn("fit_arrays: dataset exceeds the device memory budget, streaming per step")
             return self.fit(
-                cycle(images_u8, labels_u8, do_shuffle=shuffle), val_iter, val_steps,
+                cycle(images_u8, labels_u8, b_feed, do_shuffle=shuffle), val_iter, val_steps,
                 checkpoint_dir=checkpoint_dir, log_fn=log_fn, callbacks=callbacks,
+                from_process_local=from_process_local,
             )
 
-        imgs_dev, labs_dev = self.stage_dataset(images_u8, labels_u8)
+        if from_process_local:
+            imgs_dev, labs_dev = pdist.stage_local_dataset(self, images_u8, labels_u8)
+        else:
+            imgs_dev, labs_dev = self.stage_dataset(images_u8, labels_u8)
         steps = int(imgs_dev.shape[0])
         log_fn(f"fit_arrays: staged {steps} steps x batch {cfg.batch_size} on {self.device}")
         val_dev = []
         if val_images is not None:
             b = cfg.batch_size
             val_dev = [
-                (self._to_device(val_images[i * b : (i + 1) * b]), self._to_device(val_labels[i * b : (i + 1) * b]))
+                tuple(self._to_device(a) for a in pmesh.shard_batch(
+                    (val_images[i * b : (i + 1) * b], val_labels[i * b : (i + 1) * b]), self.mesh))
                 for i in range(max(len(val_images) // b, 1))
             ]
         for epoch in range(cfg.epochs):
@@ -330,7 +428,7 @@ class Trainer:
             if val_dev:
                 vagg: Dict[str, float] = {}
                 for vb in val_dev:
-                    for k, v in self.eval_on_batch(*vb).items():
+                    for k, v in self._eval_local(*vb).items():
                         vagg[k] = vagg.get(k, 0.0) + v
                 agg.update({f"val_{k}": v / len(val_dev) for k, v in vagg.items()})
             if self._end_epoch(epoch, agg, t0, checkpoint_dir, log_fn, callbacks):
@@ -345,17 +443,22 @@ class Trainer:
         checkpoint_dir: Optional[str] = None,
         log_fn: Callable[[str], None] = print,
         callbacks: Optional[list] = None,
+        from_process_local: bool = False,
     ) -> list:
         """Epoch loop over a host batch iterator, ``steps_per_epoch`` steps
         an epoch, a checkpoint per epoch.  Uploads run ahead on a side
         stream (:func:`data.prefetch.device_prefetch`) and the step metrics
         stay on the device until the epoch ends.  ``callbacks`` are
-        ``cb(trainer, epoch, metrics) -> stop``."""
-        train_iter = device_prefetch(train_iter, self.device)
+        ``cb(trainer, epoch, metrics) -> stop``.
+
+        Under a mesh ``train_iter`` yields the global batches and each rank
+        uploads its rows; ``from_process_local=True`` (multi-process
+        streaming): it yields only this rank's rows of each global batch.
+        ``val_iter`` always yields global batches."""
+        train_iter = device_prefetch(train_iter, self.device, mesh=self.mesh, from_process_local=from_process_local)
         for epoch in range(self.cfg.epochs):
             t0 = time.time()
-            steps = [self.train_on_batch(*next(train_iter), fetch_metrics=False)
-                     for _ in range(self.steps_per_epoch)]
+            steps = [self._step_on(*next(train_iter), fetch_metrics=False) for _ in range(self.steps_per_epoch)]
             agg: Dict[str, float] = {}
             for k in steps[0]:
                 for v in torch.stack([m[k] for m in steps]).tolist():  # one wait per epoch
@@ -387,8 +490,11 @@ class Trainer:
         )
 
     def _place_weights(self, path: str, params, state) -> None:
+        """Load the weights; under a mesh every rank loads them and they are
+        checked equal across the ranks."""
         ckpt.check_matches_model(path, params, state, *jax_variables(self.model), self.model_name)
         load_jax_variables(self.model, params, state)
+        pmesh.replicate(list(self.model.state_dict().values()), self.mesh)
 
     def load_weights(self, path: str) -> None:
         """Weights-only initialisation (transfer learning): params and BN

@@ -39,7 +39,16 @@ default device (the card):
   inside every step; one f32 step per member held against the same step on
   the CPU; save/restore and the staged epoch held against the per-step path;
   ``Trainer(remat=True)`` against ``remat=False`` (f32 bit-equal, bf16 peak
-  memory and step time).
+  memory and step time);
+* data-parallel training (``parallel/``), each leg in child processes so
+  this process never holds a process group: NCCL at world size 1 on the
+  card (res34, 512x512, batch 8: f32 bit-equal to a plain ``Trainer``, bf16
+  step time and peak memory beside a plain one's); two Gloo ranks sharing
+  the card (f32, 4 rows a rank: losses within 2e-4 of one process on the
+  same 8 samples, the ranks' params bit-identical, the kernel launched on
+  each rank's (4, 512, 512) labels once a step); and ``bdt-train
+  --coordinator ... --num-processes 1 --process-id 0`` on the card, whose
+  checkpoint restores.
 
 It imports nothing of JAX and nothing of the JAX package.  Any failed check
 exits non-zero before the result lines.  The second-to-last line is a JSON
@@ -66,7 +75,8 @@ EDGE_SHAPE = (8, 512, 512)        # the trainer's label batch
 # held bit-equal to its twin at: the trainer's batch; odd sizes with two
 # odd windows; an even window; W not a multiple of 4; rows wider than one
 # 512-column chunk (aligned, and ragged); a base pointer off 16 bytes; the
-# smallest and largest windows; a strip taller than the image.
+# smallest and largest windows; a strip taller than the image; a rank's
+# half of the trainer's batch under two-way data parallelism.
 EDGE_CHECKS = (
     (EDGE_SHAPE, 3, 5, 2.0, 0),
     ((3, 77, 131), 2, 4, 3.0, 0),
@@ -78,6 +88,7 @@ EDGE_CHECKS = (
     ((2, 30, 50), 1, 1, 2.0, 0),
     ((2, 70, 600), 3, 16, 2.0, 0),
     ((2, 5, 40), 3, 5, 2.0, 0),
+    ((4, 512, 512), 3, 5, 2.0, 0),
 )
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores, same source
@@ -100,6 +111,11 @@ INT8_SITE = (32 * 32 * 32, 728, 728)  # M, K, N: batch 32 at 32x32 x 728->728, a
 INT8_MIN_CH = 512                 # the CLIs' int8_pointwise: the Xception projections only
 REMAT_MEMBER = "res34"            # the member of the remat phase, 512x512, batch 8
 REMAT_STEPS = 3                   # bf16 steps each way (median of the last two)
+DP_MEMBER = "res34"               # the member of the data-parallel phase, 512x512, global batch 8
+DP_STEPS = 4                      # bf16 steps each way under NCCL: 1 warm-up, then 3 timed
+DP_GLOO_STEPS = 2                 # f32 steps of the two Gloo ranks sharing the card
+DP_LOSS_RTOL = 2e-4               # two ranks vs one process: the JAX package's DP tolerance
+DP_TIMEOUT_S = 600
 
 
 class SmokeFailure(RuntimeError):
@@ -1146,6 +1162,224 @@ def phase_train_resume_and_staged():
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
+DP_RESULT = "dp result "
+
+
+def dp_child(spec: dict) -> int:
+    """One process of the ``[dp]`` phase (``chip_smoke.py --dp-child SPEC``):
+    ``spec['leg']`` is ``'nccl'`` (world size 1) or ``'gloo'`` (one of two
+    ranks on cuda:0).  Prints one ``dp result`` JSON line."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu_torch.core.config import TrainConfig
+    from building_detection_tpu_torch.core.module import jax_variables
+    from building_detection_tpu_torch.kernels import edge_weights as K
+    from building_detection_tpu_torch.parallel import distributed as pdist
+    from building_detection_tpu_torch.parallel.mesh import make_mesh
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    cfg = TrainConfig(warmup_epochs=0)
+    imgs, labs = train_batch(SEED + 15, cfg.batch_size, cfg.image_size)
+    from building_detection_tpu_torch.train import trainer as trainer_module
+
+    shapes = []
+    targets_edges = trainer_module.edge_weight_maps
+
+    def recorded(label, *args):
+        shapes.append(tuple(label.shape))
+        return targets_edges(label, *args)
+
+    trainer_module.edge_weight_maps = recorded  # the labels make_targets hands to the kernel's wrapper
+    launch = K.edge_weight_maps
+    out = {"leg": spec["leg"]}
+    if spec["leg"] == "nccl":
+        pdist.init_distributed(f"127.0.0.1:{spec['port']}", 1, 0, backend="nccl")
+    else:
+        pdist.init_distributed(f"127.0.0.1:{spec['port']}", 2, spec["rank"], backend="gloo")
+    try:
+        mesh = make_mesh()
+        out.update(data=mesh.data, rank=mesh.rank, backend=mesh.backend, device=str(mesh.device))
+        launch.launches = 0
+        if spec["leg"] == "nccl":
+            saved = exact_f32()
+            by_kind = {"mesh": 0, "plain": 0}  # edge-kernel launches of the mesh steps and of the plain ones
+            try:
+                runs = {}
+                for kind in ("mesh", "plain"):
+                    tr = Trainer(DP_MEMBER, cfg, seed=SEED, mesh=mesh if kind == "mesh" else None)
+                    before = launch.launches
+                    loss = tr.train_on_batch(imgs, labs)["loss"]
+                    by_kind[kind] += launch.launches - before
+                    params, state = jax_variables(tr.model)
+                    runs[kind] = (loss, params, state, str(tr.device))
+                    del tr
+            finally:
+                restore_backends(saved)
+            (lm, pm, sm, dev), (lp, pp, sp, _) = runs["mesh"], runs["plain"]
+            out["f32"] = {"loss_mesh": lm, "loss_plain": lp, "device": dev,
+                          "params_equal": all(np.array_equal(pm[k], pp[k]) for k in pp),
+                          "state_equal": all(np.array_equal(sm[k], sp[k]) for k in sp)}
+            bf16 = []
+            for kind in ("plain", "mesh", "mesh", "plain"):
+                torch.cuda.empty_cache()
+                tr = Trainer(DP_MEMBER, cfg, seed=SEED, compute_dtype=torch.bfloat16,
+                             mesh=mesh if kind == "mesh" else None)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times = []
+                before = launch.launches
+                for _ in range(DP_STEPS):
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    tr.train_on_batch(imgs, labs)
+                    end.record()
+                    end.synchronize()
+                    times.append(start.elapsed_time(end))
+                by_kind[kind] += launch.launches - before
+                bf16.append({"kind": kind, "ms": statistics.median(times[1:]), "first_ms": times[0],
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+                del tr
+            out["bf16"] = bf16
+            out["steps"] = 2 + 4 * DP_STEPS
+            out["launches_by_kind"] = by_kind
+        else:
+            saved = exact_f32()
+            try:
+                tr = Trainer(DP_MEMBER, cfg, seed=SEED, mesh=mesh)
+                losses, times = [], []
+                for _ in range(DP_GLOO_STEPS):
+                    t0 = time.perf_counter()
+                    losses.append(tr.train_on_batch(imgs, labs)["loss"])
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                params, state = jax_variables(tr.model)
+            finally:
+                restore_backends(saved)
+            np.savez(os.path.join(spec["out"], f"rank{mesh.rank}.npz"), **{f"p/{k}": v for k, v in params.items()},
+                     **{f"s/{k}": v for k, v in state.items()})
+            out.update(losses=losses, ms=times, device=str(tr.device), steps=DP_GLOO_STEPS)
+        out.update(launches=launch.launches, shapes=sorted(set(shapes)))
+    finally:
+        pdist.destroy()
+    print(DP_RESULT + json.dumps(out), flush=True)
+    return 0
+
+
+def dp_results(runs, what: str) -> list:
+    out = []
+    for i, (rc, text) in enumerate(runs):
+        check(rc == 0, f"{what}: process {i} exited {rc}: {text[-4000:]}")
+        out.append(json.loads(next(ln for ln in text.splitlines() if ln.startswith(DP_RESULT))[len(DP_RESULT):]))
+    return out
+
+
+def phase_dp(here: str, work: str, smi: str) -> tuple:
+    """Data-parallel training (``parallel/``), every leg in child processes:
+    NCCL at world size 1 (f32 bit-equal to a plain Trainer, bf16 time and
+    peak memory beside it), two Gloo ranks on cuda:0 against one process,
+    and a world-size-1 ``bdt-train`` through the multi-process flags.
+    Returns the edge-kernel launches of the children's data-parallel steps
+    and of their plain comparison steps."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu_torch.core.config import TrainConfig
+    from building_detection_tpu_torch.parallel import dryrun
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    me = os.path.abspath(__file__)
+    env = port_env(here)
+
+    def child(spec):
+        return [sys.executable, me, "--dp-child", json.dumps(spec)]
+
+    (nccl,) = dp_results(dryrun.run_processes([child({"leg": "nccl", "port": dryrun.free_port()})], env,
+                                              DP_TIMEOUT_S, cwd=here), "NCCL world size 1")
+    f32 = nccl["f32"]
+    say("dp", f"NCCL world size 1 on {f32['device']}, {DP_MEMBER} 512x512 batch 8, f32, TF32 off, deterministic "
+              f"cuDNN, one step: loss {f32['loss_mesh']!r} with the mesh, {f32['loss_plain']!r} plain; params "
+              f"{'bit-equal' if f32['params_equal'] else 'DIFFER'}, BN state "
+              f"{'bit-equal' if f32['state_equal'] else 'DIFFER'} ({smi})")
+    check(nccl["data"] == 1 and nccl["backend"] == "nccl", f"NCCL mesh: {nccl}")
+    check(f32["loss_mesh"] == f32["loss_plain"] and f32["params_equal"] and f32["state_equal"],
+          "the NCCL world-size-1 step differs from the plain Trainer's")
+    by_kind = {}
+    for run in nccl["bf16"]:
+        by_kind.setdefault(run["kind"], []).append(run)
+    for kind in ("plain", "mesh"):
+        say("dp", f"NCCL world size 1 {DP_MEMBER} bf16 {kind}: "
+                  + "; ".join(f"{r['ms']:.1f} ms/step (first {r['first_ms']:.1f}), peak {r['peak_gib']:.2f} GiB"
+                              for r in by_kind[kind])
+                  + f" (median of steps 2-{DP_STEPS}, CUDA events; in turns plain, mesh, mesh, plain; {smi})")
+    check(nccl["launches"] == nccl["steps"] and nccl["shapes"] == [[8, 512, 512]],
+          f"NCCL leg: {nccl['launches']} edge-kernel launches for {nccl['steps']} steps on {nccl['shapes']}")
+    kinds = nccl["launches_by_kind"]
+    check(kinds == {"mesh": 1 + 2 * DP_STEPS, "plain": 1 + 2 * DP_STEPS},
+          f"NCCL leg: edge-kernel launches of the mesh and plain steps {kinds}")
+
+    port = dryrun.free_port()
+    gloo = dp_results(dryrun.run_processes(
+        [child({"leg": "gloo", "port": port, "rank": r, "out": work}) for r in range(2)], env, DP_TIMEOUT_S, cwd=here
+    ), "Gloo world size 2")
+    with np.load(os.path.join(work, "rank0.npz")) as z0, np.load(os.path.join(work, "rank1.npz")) as z1:
+        same = sorted(z0.files) == sorted(z1.files) and all(np.array_equal(z0[k], z1[k]) for k in z0.files)
+    cfg = TrainConfig(warmup_epochs=0)
+    imgs, labs = train_batch(SEED + 15, cfg.batch_size, cfg.image_size)
+    saved = exact_f32()
+    try:
+        single = Trainer(DP_MEMBER, cfg, seed=SEED)
+        want = [single.train_on_batch(imgs, labs)["loss"] for _ in range(DP_GLOO_STEPS)]
+        del single
+    finally:
+        restore_backends(saved)
+        torch.cuda.empty_cache()
+    got = gloo[0]["losses"]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    say("dp", f"Gloo world size 2, both ranks on {gloo[0]['device']}, {DP_MEMBER} 512x512 f32, TF32 off, global "
+              f"batch 8 (4 a rank), {DP_GLOO_STEPS} steps: losses {got} (rank 1 {gloo[1]['losses']}), one process "
+              f"{want}, max rel |d| {rel:.2e} (rtol {DP_LOSS_RTOL}); ranks' params and BN state "
+              f"{'bit-identical' if same else 'DIFFER'}; edge kernel on {gloo[0]['shapes']} "
+              f"{gloo[0]['launches']} / {gloo[1]['launches']} launches; step "
+              + " / ".join(f"{ms:.1f}" for ms in gloo[0]["ms"])
+              + f" ms on rank 0 (host clock; Gloo carries every all-reduce through the host: a check, not the "
+              f"production path; {smi})")
+    check(all(g["data"] == 2 and g["backend"] == "gloo" for g in gloo), f"Gloo mesh: {gloo}")
+    check(got == gloo[1]["losses"] and same, "the two Gloo ranks disagree")
+    check(rel <= DP_LOSS_RTOL, f"two ranks vs one process: losses differ by rel {rel}")
+    check(all(g["launches"] == DP_GLOO_STEPS and g["shapes"] == [[4, 512, 512]] for g in gloo),
+          f"Gloo leg: edge-kernel launches {[(g['launches'], g['shapes']) for g in gloo]}")
+
+    data = os.path.join(work, "data")
+    rng = np.random.RandomState(SEED + 16)
+    from PIL import Image
+
+    for sub in ("img", "lab"):
+        os.makedirs(os.path.join(data, sub))
+    for i in range(8):
+        img, lab = train_batch(SEED + 30 + i, 1, 64)
+        Image.fromarray(img[0]).save(os.path.join(data, "img", f"{i}.png"))
+        Image.fromarray(lab[0]).save(os.path.join(data, "lab", f"{i}.png"))
+    ck = os.path.join(work, "ck")
+    stdout, secs = run_cli(here, "train", [
+        DP_MEMBER, "--train-images", os.path.join(data, "img"), "--train-labels", os.path.join(data, "lab"),
+        "--checkpoint-dir", ck, "--batch-size", "8", "--epochs", "1", "--warmup-epochs", "0", "--image-size", "64",
+        "--coordinator", f"127.0.0.1:{dryrun.free_port()}", "--num-processes", "1", "--process-id", "0",
+    ], "bdt-train --num-processes 1")
+    path = os.path.join(ck, "epoch_1_weights.npz")
+    check(os.path.exists(path), f"bdt-train wrote no checkpoint: {stdout[-2000:]}")
+    back = Trainer(DP_MEMBER, TrainConfig(batch_size=8, image_size=64), seed=SEED + 3)
+    back.restore(path)
+    check(back.step == 1, f"the checkpoint restored at step {back.step}, not 1")
+    del back
+    torch.cuda.empty_cache()
+    say("dp", f"bdt-train --coordinator 127.0.0.1:PORT --num-processes 1 --process-id 0 on the card (NCCL): exit 0 "
+              f"in {secs:.1f} s wall, its checkpoint restores at step 1; phase {time.perf_counter() - t0:.1f} s "
+              f"({smi})")
+    return kinds["mesh"] + sum(g["launches"] for g in gloo), kinds["plain"]
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -1154,7 +1388,7 @@ def main() -> int:
     from building_detection_tpu_torch.infer.pipeline import Pipeline
 
     t_start = time.perf_counter()
-    kind, _ = phase_device()
+    kind, smi = phase_device()
     phase_build()
     edge = phase_edge_check()
     phase_normalize()
@@ -1180,11 +1414,15 @@ def main() -> int:
     phase_train_parity()
     train_launches = phase_train_full()
     remat_launches = phase_remat()
-    launches["edge_weight_maps"] += train_launches + remat_launches
     phase_train_resume_and_staged()
+    with tempfile.TemporaryDirectory(dir=here) as work:
+        dp_launches, dp_plain_launches = phase_dp(here, work, smi)
+    serving_launches = launches["edge_weight_maps"]
+    launches["edge_weight_maps"] += train_launches + remat_launches + dp_launches + dp_plain_launches
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; edge-kernel launches: serving path "
-                f"{launches['edge_weight_maps'] - train_launches - remat_launches}, training path {train_launches}, "
-                f"remat steps {remat_launches}; torch._int_mm launches on the int8 path {int_mm_calls}")
+                f"{serving_launches}, training path {train_launches}, remat steps {remat_launches}, data-parallel "
+                f"steps {dp_launches}, the [dp] phase's plain comparison steps {dp_plain_launches}; torch._int_mm "
+                f"launches on the int8 path {int_mm_calls}")
     kernels = [{
         "name": "edge_weight_maps",
         "route": "cuda",
@@ -1200,6 +1438,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-child"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(dp_child(json.loads(sys.argv[2])))
     try:
         sys.exit(main())
     except SmokeFailure as e:

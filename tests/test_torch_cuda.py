@@ -2,7 +2,8 @@
 ``normalize``, the fused predictor, the per-model engine and the blocked
 path on the card against the CPU, a full-width ``Trainer`` step, which
 launches the kernel once, ``torch._int_mm`` and the int8 predictor against
-the CPU, and a ``remat`` step against a plain one.
+the CPU, a ``remat`` step against a plain one, and a data-parallel step
+(NCCL, world size 1, in a child process) against a plain one.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -13,6 +14,9 @@ there the suite's ``conftest.py`` (which imports JAX) is left out:
 
 The tiny members and scenes below are shared with ``test_torch_pipeline.py``.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -231,3 +235,50 @@ def test_remat_train_step_on_card_equals_plain(cuda):
     (m0, p0), (m1, p1) = runs
     assert m0 == m1
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+def nccl_world_one_worker(port: int) -> None:
+    """Child of :func:`test_nccl_world_one_step_equals_plain`: a tiny
+    conv-BN-conv model, f32 with TF32 off and deterministic cuDNN, one step
+    under an NCCL mesh of world size 1 and one plain step, bit-equal."""
+    from building_detection_tpu_torch.parallel import distributed as pdist
+    from building_detection_tpu_torch.parallel.mesh import make_mesh
+    from test_torch_distributed import TorchTiny
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    pdist.init_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh()
+        assert (mesh.data, mesh.group, mesh.backend, mesh.device.type) == (1, None, "nccl", "cuda"), mesh
+        rng = np.random.RandomState(2)
+        imgs = rng.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8)
+        labs = np.where(rng.rand(4, 64, 64) < 0.3, 255, 0).astype(np.uint8)
+        cfg = TrainConfig(batch_size=4, image_size=64, warmup_epochs=0)
+        runs = []
+        for m in (mesh, None):
+            tr = Trainer(TorchTiny, cfg, mesh=m)
+            before = K.edge_weight_maps.launches
+            metrics = tr.train_on_batch(imgs, labs)
+            assert K.edge_weight_maps.launches == before + 1
+            runs.append((metrics, [t.detach().cpu() for t in tr.model.state_dict().values()]))
+        (m0, v0), (m1, v1) = runs
+        assert m0 == m1, (m0, m1)
+        assert all(torch.equal(a, b) for a, b in zip(v0, v1))
+    finally:
+        pdist.destroy()
+    print("nccl world one: bit-equal", flush=True)
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_step_equals_plain(cuda):
+    from building_detection_tpu_torch.parallel import dryrun
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, os.path.join(here, "test_torch_cuda.py"), "nccl-worker", str(dryrun.free_port())]
+    ((rc, out),) = dryrun.run_processes([argv], dryrun.port_env(), 300, cwd=here)
+    assert rc == 0 and "bit-equal" in out, out[-6000:]
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["nccl-worker"]:
+    nccl_world_one_worker(int(sys.argv[2]))

@@ -241,6 +241,7 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from building_detection_tpu_torch.infer.engine import EnsemblePredictor, TiledPredictor
     from building_detection_tpu_torch.infer.fused_ensemble import FusedEnsemblePredictor
     from building_detection_tpu_torch.infer.pipeline import Pipeline
+    from building_detection_tpu_torch.parallel import dryrun
     from building_detection_tpu_torch.train.trainer import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -249,6 +250,7 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         lambda: TiledPredictor(torch.nn.Identity()), lambda: EnsemblePredictor({}),
         lambda: predict_cli.main(["--image", str(tmp_path / "x.png"), "--out", str(tmp_path)]),
         lambda: serve_cli.main(["--port", "0", "--root-dir", str(tmp_path)]),
+        lambda: dryrun.dryrun_multichip(1), lambda: dryrun.main(["1"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             make()

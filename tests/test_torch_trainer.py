@@ -8,8 +8,10 @@
   staged equals streamed, and ``fit_arrays`` plus ``restore`` resumes the
   fit history;
 * weights-only loading (``.npz`` and Keras ``.h5``), ``remat=True``, the
-  refusals (multi-device, a missing card), the prefetcher, the epoch
-  visualiser and the two CLIs on a tiny on-disk dataset.
+  refusals (a mesh that is not a ``parallel.mesh.Mesh``, ``tp``, a missing
+  card, the train CLI's incomplete multi-process flags and a data axis
+  wider than the run), the prefetcher, the epoch visualiser and the two
+  CLIs on a tiny on-disk dataset.
 
 The JAX comparison runs at 16 px over a few steps, where f32 noise stays
 far below the 1e-5 relative tolerance.
@@ -208,10 +210,17 @@ def test_bf16_compute_keeps_f32_masters():
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"tp": True}, {"remat": True}], ids=["mesh", "tp", "remat"])
 def test_unported_options_raise(kw):
-    """Multi-device training is refused; ``remat=True`` is ported and a
-    step with it equals a plain step (``test_torch_remat.py`` holds the five
+    """A mesh that is not a ``parallel.mesh.Mesh`` is refused with a
+    ``TypeError`` naming it (data-parallel training is ported:
+    ``test_torch_parallel.py``, ``test_torch_distributed.py``); channel
+    tensor parallelism is still refused; ``remat=True`` is ported and a step
+    with it equals a plain step (``test_torch_remat.py`` holds the five
     members)."""
-    if "remat" not in kw:
+    if "mesh" in kw:
+        with pytest.raises(TypeError, match=r"parallel\.mesh\.Mesh"):
+            trainer(**kw)
+        return
+    if "tp" in kw:
         with pytest.raises(NotImplementedError):
             trainer(**kw)
         return
@@ -310,6 +319,18 @@ def test_train_cli_resume_and_evaluate(dataset, monkeypatch, capsys, budget):
 
 
 @pytest.mark.parametrize("extra", [["--num-processes", "2"], ["--data-parallel", "2"]], ids=["multiprocess", "dp"])
-def test_train_cli_refuses_multi_device(dataset, extra):
-    with pytest.raises(NotImplementedError):
-        train_cli.main(train_args(dataset, *extra))
+def test_train_cli_refuses_multi_device(dataset, extra, capsys):
+    """``--num-processes`` without ``--coordinator``/``--process-id`` exits
+    with a usage error naming them; ``--data-parallel 2`` in a process with
+    no process group raises, naming the launch flags.  Neither starts a
+    process group (the two-process runs are in ``test_torch_distributed.py``)."""
+    if "--num-processes" in extra:
+        with pytest.raises(SystemExit) as stop:
+            train_cli.main(train_args(dataset, *extra))
+        assert stop.value.code == 2
+        err = capsys.readouterr().err
+        assert "--coordinator" in err and "--process-id" in err
+    else:
+        with pytest.raises(ValueError, match="--num-processes"):
+            train_cli.main(train_args(dataset, *extra))
+    assert not torch.distributed.is_initialized()
