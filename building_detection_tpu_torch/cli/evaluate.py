@@ -7,11 +7,20 @@ The flags are ``building_detection_tpu/cli/evaluate.py``'s, with
 ``--device`` added; it prints one JSON line.  Whole batches only, as the
 reference's validation steps: the ``len % batch`` tail is not evaluated,
 and ``samples`` says how many were.
+
+Data-parallel evaluation runs one process per device, as ``bdt-train``
+does: the same arguments plus ``--coordinator HOST:PORT --num-processes N
+--process-id I`` (or ``--num-processes 0`` under ``torchrun``), NCCL for
+cards and Gloo for ``--device cpu``.  Every process reads the same whole
+batches and evaluates its rows of each; the metrics and the loss are
+reduced over the processes, and process 0 alone prints the line.
 """
 from __future__ import annotations
 
 import argparse
 import json
+
+from building_detection_tpu_torch.cli.train import add_process_flags, start_processes
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -26,19 +35,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--image-size", type=int, default=512)
     p.add_argument("--precision", choices=["bf16", "f32"], default="f32")
     p.add_argument("--device", default="cuda", help="torch device to evaluate on (no fallback)")
-    p.add_argument("--data-parallel", type=int, default=-1, help="devices on the data axis (1 here)")
+    p.add_argument(
+        "--data-parallel", type=int, default=-1,
+        help="processes on the data axis (-1: all, capped at gcd(batch size, processes))",
+    )
+    add_process_flags(p, "evaluation")
     return p
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    if args.data_parallel not in (-1, 1):
-        raise NotImplementedError("evaluation over several devices is slice 3 of the port")
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    pdist = start_processes(parser, args, "evaluation")
+    try:
+        return evaluate(args)
+    finally:
+        pdist.destroy()
 
+
+def evaluate(args) -> int:
     import torch
 
     from building_detection_tpu_torch.core.config import TrainConfig
     from building_detection_tpu_torch.data.dataset import batch_iterator, list_pairs
+    from building_detection_tpu_torch.parallel import distributed as pdist
+    from building_detection_tpu_torch.parallel.mesh import make_mesh
     from building_detection_tpu_torch.train.trainer import Trainer
 
     pairs = list_pairs(args.images, args.labels)
@@ -47,6 +68,7 @@ def main(argv=None) -> int:
         args.model,
         TrainConfig(batch_size=args.batch_size, image_size=args.image_size),
         steps_per_epoch=steps,
+        mesh=make_mesh(data=args.data_parallel, batch_size=args.batch_size),
         compute_dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
         device=args.device,
     )
@@ -58,7 +80,8 @@ def main(argv=None) -> int:
             agg[k] = agg.get(k, 0.0) + v
     agg = {k: round(v / steps, 6) for k, v in agg.items()}
     agg["samples"] = min(steps * args.batch_size, len(pairs))
-    print(json.dumps(agg))
+    if pdist.is_primary():
+        print(json.dumps(agg))
     return 0
 
 

@@ -66,15 +66,21 @@ def build_parser() -> argparse.ArgumentParser:
         "--data-parallel", type=int, default=-1,
         help="processes on the data axis (-1: all, capped at gcd(batch size, processes))",
     )
+    add_process_flags(p, "training")
+    return p
+
+
+def add_process_flags(p: argparse.ArgumentParser, what: str) -> None:
+    """``--coordinator``, ``--num-processes`` and ``--process-id``, read by
+    :func:`start_processes`."""
     p.add_argument(
         "--coordinator",
-        help="multi-process training: host:port of process 0's rendezvous; launch one bdt-train per device with "
+        help=f"multi-process {what}: host:port of process 0's rendezvous; launch one process per device with "
         "identical arguments plus --num-processes/--process-id (--num-processes 0 reads the torchrun "
-        "environment); each process decodes only its rows of the dataset, process 0 writes the checkpoints",
+        "environment); each process handles only its rows of every batch, process 0 alone writes",
     )
     p.add_argument("--num-processes", type=int)
     p.add_argument("--process-id", type=int)
-    return p
 
 
 def newest_checkpoint(checkpoint_dir: str):
@@ -94,13 +100,17 @@ def decode_all(pairs, image_size: int):
     return np.stack([d[0] for d in decoded]), np.stack([d[1] for d in decoded])
 
 
-def main(argv=None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
+def start_processes(parser: argparse.ArgumentParser, args, what: str):
+    """Bring up the process group a multi-process run's flags ask for
+    (``--coordinator``, ``--num-processes``, ``--process-id``, or
+    ``--num-processes 0`` under ``torchrun``): NCCL when ``--device`` is a
+    card, Gloo otherwise.  Incomplete flags exit with a usage error naming
+    them.  Returns :mod:`parallel.distributed`, whose ``destroy`` the
+    caller runs in a ``finally``."""
     multi = args.coordinator is not None or args.num_processes is not None or args.process_id is not None
     if multi and args.num_processes != 0 and None in (args.coordinator, args.num_processes, args.process_id):
         parser.error(
-            "multi-process training takes --coordinator HOST:PORT, --num-processes N and --process-id I "
+            f"multi-process {what} takes --coordinator HOST:PORT, --num-processes N and --process-id I "
             "together (or --num-processes 0 under torchrun)"
         )
 
@@ -114,6 +124,13 @@ def main(argv=None) -> int:
             pdist.init_distributed(backend=backend)
         else:
             pdist.init_distributed(args.coordinator, args.num_processes, args.process_id, backend=backend)
+    return pdist
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    pdist = start_processes(parser, args, "training")
     try:
         return train(args)
     finally:

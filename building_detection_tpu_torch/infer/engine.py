@@ -15,6 +15,12 @@ several scenes or blocks before fetching the first (``infer/large_scene.py``)
 overlaps uploads, compute and downloads.  Every host buffer a copy reads
 or writes stays referenced by the handle until :meth:`TiledPredictor.fetch`
 has waited for it.
+
+``TiledPredictor(mesh=)`` shards each chunk of tiles over a mesh of local
+devices as the fused predictor does (``fused_ensemble.shard_forward``);
+``EnsemblePredictor(devices=)`` places the members round-robin on several
+devices, uploads each scene once per distinct device and dispatches every
+member before it fetches any.
 """
 from __future__ import annotations
 
@@ -27,10 +33,15 @@ from torch import nn
 from building_detection_tpu_torch.core.config import TilerConfig
 from building_detection_tpu_torch.core.device import check_device
 from building_detection_tpu_torch.core.module import cast_params, set_int8
-from building_detection_tpu_torch.infer.fused_ensemble import DEFAULT_BATCH_TILES, fetch_pinned, upload_pinned
+from building_detection_tpu_torch.infer.fused_ensemble import (
+    DEFAULT_BATCH_TILES,
+    fetch_pinned,
+    replicate_model,
+    shard_forward,
+    upload_pinned,
+)
 from building_detection_tpu_torch.ops import tiling as T
-
-_SLICE_3 = "slice 3 of the port"
+from building_detection_tpu_torch.parallel.mesh import CHANNEL_TP, predictor_devices
 
 
 class TiledPredictor:
@@ -42,8 +53,11 @@ class TiledPredictor:
     nothing falls back) and casts its parameters to ``compute_dtype``.
     ``int8_pointwise`` and ``int8_scales`` (``{site: amax}``) opt it into
     int8 pointwise convs (:func:`core.module.set_int8`): NOT mask-parity.
-    ``mesh`` and ``tp``, the JAX package's multi-device options, are
-    refused here.
+    ``mesh`` (a mesh of local devices) shards each chunk of tiles over its
+    data axis, ``batch_tiles`` per shard, with a replica of the model on
+    each distinct device (see :class:`~building_detection_tpu_torch.infer.
+    fused_ensemble.FusedEnsemblePredictor`).  ``tp`` (channel tensor
+    parallelism) is refused: ``ROADMAP.md`` item 16.
     """
 
     def __init__(
@@ -52,22 +66,28 @@ class TiledPredictor:
         cfg: TilerConfig = TilerConfig(),
         batch_tiles: int = DEFAULT_BATCH_TILES,
         compute_dtype: torch.dtype = torch.bfloat16,
-        device="cuda",
+        device=None,
         mesh=None,
         tp: bool = False,
         int8_pointwise: bool = False,
         int8_scales: Optional[dict] = None,
     ):
-        if mesh is not None or tp:
-            raise NotImplementedError(f"tile data parallelism and channel TP are {_SLICE_3}")
-        self.device = torch.device(device)
-        check_device(self.device)
+        if tp:
+            raise NotImplementedError(CHANNEL_TP)
+        self.devices = predictor_devices(mesh, device)
+        self.device = self.devices[0]
         self.model = set_int8(cast_params(model.to(self.device).eval(), compute_dtype), int8_pointwise, int8_scales)
+        self.replicas = replicate_model(self.model, self.devices)
         self.cfg = cfg
-        self.batch_tiles = batch_tiles
+        self.batch_tiles = batch_tiles * len(self.devices)
         self.compute_dtype = compute_dtype
         self._cuda = self.device.type == "cuda"
         self._upload = torch.cuda.Stream(self.device) if self._cuda else None
+
+    def _bits(self, tiles: torch.Tensor, _=None) -> torch.Tensor:
+        """(B, tile, tile) uint8 class-1 argmax bits of the replica on the
+        tiles' device: the one stage of :func:`shard_forward`."""
+        return (torch.argmax(self.replicas[tiles.device](tiles), dim=-1) == 1).to(torch.uint8)
 
     # -- device work -------------------------------------------------------
     def _run(self, image: torch.Tensor, plan: T.TilePlan, h: int, w: int) -> torch.Tensor:
@@ -86,7 +106,7 @@ class TiledPredictor:
         for start in range(0, len(origins), batch):
             chunk = origins[start : start + batch]
             tiles = torch.stack([canvas[r : r + tile, c : c + tile] for r, c in chunk])
-            bits = (torch.argmax(self.model(tiles), dim=-1) == 1).to(torch.uint8)
+            bits = shard_forward([self._bits], tiles, self.devices)
             # per-tile OR == the reference's accumulate-then->=1 (predict.py:113-114)
             for bit, (r, c) in zip(bits, chunk):
                 mask[r : r + tile, c : c + tile] |= bit
@@ -152,9 +172,13 @@ class TiledPredictor:
 
 class EnsemblePredictor:
     """The five members of the reference (`predict.py:75-87`), each a
-    :class:`TiledPredictor` on ``device``; per-model masks in the members'
-    order.  Each member module is owned (moved and cast) by its predictor;
+    :class:`TiledPredictor`; per-model masks in the members' order.  Each
+    member module is owned (moved and cast) by its predictor;
     ``int8_scales`` is ``{member: {site: amax}}``.
+
+    The members run on ``device``, or with ``devices`` round-robin on those
+    devices (ensemble model parallelism: member ``i`` on ``devices[i %
+    len(devices)]``), as in the JAX package.
     """
 
     def __init__(
@@ -168,27 +192,34 @@ class EnsemblePredictor:
         int8_pointwise: bool = False,
         int8_scales: Optional[Dict[str, dict]] = None,
     ):
-        if devices is not None:
-            if len(devices) > 1:
-                raise NotImplementedError(f"ensemble model parallelism over several devices is {_SLICE_3}")
-            device = devices[0] if devices else device
-        check_device(torch.device(device))
+        if devices is not None and not devices:
+            raise ValueError("EnsemblePredictor(devices=[]) names no device")
+        placed = [torch.device(d) for d in devices] if devices is not None else [torch.device(device)]
+        for d in dict.fromkeys(placed):
+            check_device(d)
         self.predictors = {
-            name: TiledPredictor(
-                model, cfg, batch_tiles, compute_dtype, device,
-                int8_pointwise=int8_pointwise, int8_scales=(int8_scales or {}).get(name),
-            )
-            for name, model in members.items()
+            name: TiledPredictor(model, cfg, batch_tiles, compute_dtype, placed[i % len(placed)])
+            for i, (name, model) in enumerate(members.items())
         }
+        self.set_int8(int8_pointwise, int8_scales)
         self.names = list(self.predictors)
         self.cfg = cfg
 
+    def set_int8(self, int8_pointwise, int8_scales: Optional[Dict[str, dict]]) -> None:
+        """The int8 options (:func:`core.module.set_int8`) on every member."""
+        for name, p in self.predictors.items():
+            set_int8(p.model, int8_pointwise, (int8_scales or {}).get(name))
+
     def predict_masks(self, image_rgb: np.ndarray) -> Dict[str, np.ndarray]:
-        """Stage and upload the scene once, dispatch every member, then fetch."""
+        """Stage the scene once and upload it once per distinct device,
+        dispatch every member, then fetch."""
         preds = list(self.predictors.values())
         plan, staged, h, w = preds[0].plan_and_stage(image_rgb)
         if plan is None:
             return {name: np.zeros((h, w), np.uint8) for name in self.names}
-        on_device = preds[0].upload(staged)
-        dispatched = {name: p.dispatch_staged(on_device, plan, h, w) for name, p in self.predictors.items()}
+        uploads = {}
+        for p in preds:
+            if p.device not in uploads:
+                uploads[p.device] = p.upload(staged)
+        dispatched = {name: p.dispatch_staged(uploads[p.device], plan, h, w) for name, p in self.predictors.items()}
         return {name: TiledPredictor.fetch(d) for name, d in dispatched.items()}

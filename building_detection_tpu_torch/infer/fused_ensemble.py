@@ -11,18 +11,31 @@ and the bitplanes come back into pinned memory behind an event, so later
 groups' uploads and launches overlap earlier groups' compute and the host's
 post-processing.  :meth:`FusedEnsemblePredictor.predict_vote` is the plain
 vote of ``bdt-predict --fast-vote``.
+
+Tile data parallelism (``mesh=``, a mesh of local devices from
+:func:`parallel.mesh.make_mesh`) is :func:`shard_forward`: each chunk of
+tiles is cut into one contiguous part per shard, in the row order JAX's
+sharding over the data axis gives its devices, every part is sent to its
+device and run there on that device's replicas, member by member across
+the shards, and the results come back to the home device (the mesh's
+first), which keeps the upload, the canvas, the OR, the packing and the
+fetch.  PyTorch copies between two cards on the source card's current
+stream behind a two-way barrier with the destination's current stream,
+so neither buffer is reused before its copy is done and no
+``record_stream`` is needed.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional, Tuple
+import copy
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from building_detection_tpu_torch.core.config import TilerConfig
-from building_detection_tpu_torch.core.device import check_device
 from building_detection_tpu_torch.core.module import cast_params, set_int8
+from building_detection_tpu_torch.parallel.mesh import predictor_devices
 from building_detection_tpu_torch.ops import tiling as T
 
 # Tiles per dispatch.  Chosen from the batch sweep of ``chip_smoke.py`` on
@@ -80,6 +93,48 @@ def fetch_pinned(t: torch.Tensor, device: torch.device) -> Tuple[torch.Tensor, "
     return out, done
 
 
+Stage = Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
+
+
+def shard_forward(stages: Sequence[Stage], tiles: torch.Tensor, devices: Sequence[torch.device]) -> torch.Tensor:
+    """``stages`` over ``tiles`` split across ``devices``.  Part ``i`` of
+    ``len(devices)`` equal contiguous parts goes to ``devices[i]``; each
+    stage maps ``(part, result so far)`` to the new result (``None`` before
+    the first stage), and the results, in order, come back to ``tiles``'
+    device.  A batch that the shards do not divide is padded by repeating
+    its last tile and the pad's results are dropped, so every shard runs
+    the same batch shape.  Nothing waits for a device.
+
+    One thread launches a stage on every shard before the next stage.  A
+    card's launch queue holds about a thousand kernels and a member's
+    forward launches more, so launching one shard's whole work before the
+    next shard's makes the host wait on each card in turn, and the cards
+    run one after another; stage by stage, every card's queue is filled
+    before the host waits on any.  (A launch thread per card measured
+    slower: the interpreter lock passes between the threads at every op.)"""
+    n, home = tiles.shape[0], tiles.device
+    if len(devices) == 1:
+        parts = [tiles]
+    else:
+        pad = -n % len(devices)
+        if pad:
+            tiles = torch.cat([tiles, tiles[-1:].expand(pad, *tiles.shape[1:])])
+        parts = [part.to(d, non_blocking=True) for part, d in zip(tiles.chunk(len(devices)), devices)]
+    results: List[Optional[torch.Tensor]] = [None] * len(parts)
+    for stage in stages:
+        for i, part in enumerate(parts):
+            results[i] = stage(part, results[i])
+    if len(parts) == 1:
+        return results[0]
+    return torch.cat([r.to(home, non_blocking=True) for r in results])[:n]
+
+
+def replicate_model(model: nn.Module, devices: Sequence[torch.device]) -> Dict[torch.device, nn.Module]:
+    """``{device: replica}`` over the distinct ``devices``: ``model`` itself
+    (already on ``devices[0]``) and a deep copy on each other device."""
+    return {d: model if d == devices[0] else copy.deepcopy(model).to(d) for d in dict.fromkeys(devices)}
+
+
 class FusedEnsemblePredictor:
     """All members over shared tiles, one dispatch per scene group.
 
@@ -89,6 +144,17 @@ class FusedEnsemblePredictor:
     casts its parameters to ``compute_dtype``.  ``int8_pointwise`` and
     ``int8_scales`` (``{member: {site: amax}}``) opt the members into int8
     pointwise convs (:func:`core.module.set_int8`): NOT mask-parity.
+
+    ``mesh`` (a mesh of local devices, :func:`parallel.mesh.make_mesh`)
+    shards every chunk of tiles over its data axis (:func:`shard_forward`):
+    ``batch_tiles`` counts tiles per shard, as in the JAX package, so a
+    chunk holds ``batch_tiles * len(mesh.devices)`` tiles and every shard
+    forwards ``batch_tiles`` of them, the last chunk's shards the same
+    smaller count.  Each member has one replica per distinct device, with
+    the same int8 options; the mesh names the devices, so ``device`` stays
+    ``None``.  A mesh with a ``model`` axis raises ``ValueError``, as in the
+    JAX package: the members' channel structures differ, so one model axis
+    cannot partition them.
     """
 
     # Scene-group sizes: quantizing bounds the shapes a serving batcher
@@ -101,34 +167,60 @@ class FusedEnsemblePredictor:
         cfg: TilerConfig = TilerConfig(),
         batch_tiles: int = DEFAULT_BATCH_TILES,
         compute_dtype: torch.dtype = torch.bfloat16,
-        device="cuda",
+        device=None,
         int8_pointwise=False,
         int8_scales: Optional[Dict[str, Dict[str, float]]] = None,
+        mesh=None,
     ):
-        self.device = torch.device(device)
-        check_device(self.device)
+        if mesh is not None and getattr(mesh, "model", 1) > 1:
+            raise ValueError(
+                "FusedEnsemblePredictor supports data-axis sharding only; got a mesh with model axis > 1. "
+                "Use a data-only mesh."
+            )
+        self.devices = predictor_devices(mesh, device)
+        self.device = self.devices[0]
         self.names = list(members)
-        self.models = {
-            n: set_int8(cast_params(m.to(self.device).eval(), compute_dtype), int8_pointwise,
-                        (int8_scales or {}).get(n))
-            for n, m in members.items()
-        }
+        self.models = {n: cast_params(m.to(self.device).eval(), compute_dtype) for n, m in members.items()}
+        self.replicas = {d: {} for d in dict.fromkeys(self.devices)}
+        for n, m in self.models.items():
+            for d, replica in replicate_model(m, self.devices).items():
+                self.replicas[d][n] = replica
+        self.set_int8(int8_pointwise, int8_scales)
+        self._stages = [self._member_stage(bit, name) for bit, name in enumerate(self.names)]
         self.cfg = cfg
-        self.batch_tiles = batch_tiles
+        self.batch_tiles = batch_tiles * len(self.devices)
         self.compute_dtype = compute_dtype
         self._cuda = self.device.type == "cuda"
         self._upload = torch.cuda.Stream(self.device) if self._cuda else None
 
+    def set_int8(self, int8_pointwise, int8_scales: Optional[Dict[str, Dict[str, float]]]) -> None:
+        """The int8 options (:func:`core.module.set_int8`) on every replica
+        of every member."""
+        for models in self.replicas.values():
+            for n, m in models.items():
+                set_int8(m, int8_pointwise, (int8_scales or {}).get(n))
+
     # -- device work -------------------------------------------------------
+    def _member_stage(self, bit: int, name: str) -> Stage:
+        """The :func:`shard_forward` stage of member ``name``: its class-1
+        argmax bit (taken after the softmax: ties resolve to class 0), from
+        the replica on the tiles' device, ORed in at ``bit``."""
+        def stage(tiles: torch.Tensor, packed: Optional[torch.Tensor]) -> torch.Tensor:
+            probs = self.replicas[tiles.device][name](tiles)
+            bits = (torch.argmax(probs, dim=-1) == 1).to(torch.uint8) << bit
+            return bits if packed is None else packed.bitwise_or_(bits)
+        return stage
+
     def member_bits(self, tiles: torch.Tensor) -> torch.Tensor:
         """(B, tile, tile, 3) normalized tiles -> (B, tile, tile) uint8 with
-        bit ``i`` set where member ``i``'s argmax is class 1 (taken after the
-        softmax: ties resolve to class 0)."""
-        packed = torch.zeros(tiles.shape[:3], dtype=torch.uint8, device=tiles.device)
-        for bit, name in enumerate(self.names):
-            probs = self.models[name](tiles)
-            packed |= (torch.argmax(probs, dim=-1) == 1).to(torch.uint8) << bit
-        return packed
+        bit ``i`` set where member ``i``'s argmax is class 1, on the tiles'
+        device."""
+        return shard_forward(self._stages, tiles, [tiles.device])
+
+    def sharded_bits(self, tiles: torch.Tensor) -> torch.Tensor:
+        """:meth:`member_bits` of tiles on the home device, run over the
+        mesh's shards; the bits come back to the home device."""
+        return shard_forward(self._stages, tiles, self.devices)
 
     def _run_group(self, imgs: torch.Tensor, hw: np.ndarray, plan: T.TilePlan) -> torch.Tensor:
         """Device half of one dispatch: uint8 scenes -> packed bitplanes."""
@@ -157,7 +249,7 @@ class FusedEnsemblePredictor:
                 (chunk[:, 1, None] + ar)[:, :, None],
                 (chunk[:, 2, None] + ar)[:, None, :],
             ]
-            packed = self.member_bits(tiles)
+            packed = self.sharded_bits(tiles)
             # per-bit OR over overlapping tiles == the reference's
             # accumulate-then->=1 per model (predict.py:113-114)
             for i, (s, r, c) in enumerate(origins[start : start + self.batch_tiles]):

@@ -21,8 +21,7 @@ import numpy as np
 import torch
 
 from building_detection_tpu_torch.core.config import Config
-from building_detection_tpu_torch.core.device import check_device
-from building_detection_tpu_torch.core.module import calibrate_int8, jax_variables, load_jax_variables, set_int8
+from building_detection_tpu_torch.core.module import calibrate_int8, jax_variables, load_jax_variables
 from building_detection_tpu_torch.infer.engine import EnsemblePredictor
 from building_detection_tpu_torch.infer.fused_ensemble import (
     DEFAULT_BATCH_TILES,
@@ -31,6 +30,7 @@ from building_detection_tpu_torch.infer.fused_ensemble import (
 from building_detection_tpu_torch.infer.large_scene import predict_masks_blocked
 from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER, build_model, init_model
 from building_detection_tpu_torch.ops import tiling as T
+from building_detection_tpu_torch.parallel.mesh import predictor_devices
 from building_detection_tpu_torch.post import edges as E
 from building_detection_tpu_torch.post import fusion as F
 from building_detection_tpu_torch.train.checkpoint import import_h5_weights, load_variables
@@ -150,6 +150,14 @@ class Pipeline:
     scene group; ``fused=False`` runs each member through its own
     :class:`~building_detection_tpu_torch.infer.engine.TiledPredictor`.
 
+    ``mesh`` (a mesh of local devices, :func:`parallel.mesh.make_mesh`)
+    shards the fused predictor's tile chunks over its data axis,
+    ``batch_tiles`` per shard; the blocked path runs through the same
+    dispatches, so tile-parallel too.  The mesh names the devices, so
+    ``device`` stays ``None``.  Unlike the JAX package, which drops a mesh
+    under ``fused=False``, ``Pipeline(fused=False, mesh=...)`` raises a
+    ``ValueError``: the mesh needs ``fused=True``.
+
     ``max_scene_tiles``: scenes whose tile grid exceeds it run through the
     blocked path (``infer/large_scene.py``), blocks of ``batch_tiles`` tiles,
     so the scene canvas on the device is O(block) and the masks are the
@@ -173,16 +181,18 @@ class Pipeline:
         compute_dtype: torch.dtype = torch.bfloat16,
         models: tuple = ENSEMBLE_ORDER,
         seed: int = 0,
-        device="cuda",
+        device=None,
         fused: bool = True,
+        mesh=None,
         max_scene_tiles: Optional[int] = 1024,
         h5_strict: bool = True,
         int8_pointwise=False,
         int8_calibration: Optional[List[np.ndarray]] = None,
         int8_scales: Optional[Dict[str, Dict[str, float]]] = None,
     ):
-        device = torch.device(device)
-        check_device(device)
+        if mesh is not None and not fused:
+            raise ValueError("Pipeline(mesh=...) needs fused=True: the per-model engine takes no mesh here")
+        home = predictor_devices(mesh, device)[0]  # every device checked before any weight loads
         self.cfg = cfg
         self.batch_tiles = batch_tiles
         self.max_scene_tiles = max_scene_tiles
@@ -202,18 +212,18 @@ class Pipeline:
                 params, state, *_ = load_variables(path)
                 members[name] = load_jax_variables(build_model(name), params, state)
         # each member module goes to exactly one predictor, which owns it
-        make = FusedEnsemblePredictor if fused else EnsemblePredictor
-        self.ensemble = make(
-            members, cfg.tiler, batch_tiles, compute_dtype, device,
-            int8_pointwise=int8_pointwise, int8_scales=int8_scales,
-        )
+        int8 = {"int8_pointwise": int8_pointwise, "int8_scales": int8_scales}
+        if fused:
+            self.ensemble = FusedEnsemblePredictor(members, cfg.tiler, batch_tiles, compute_dtype, device, mesh=mesh,
+                                                   **int8)
+        else:
+            self.ensemble = EnsemblePredictor(members, cfg.tiler, batch_tiles, compute_dtype, home, **int8)
         if int8_pointwise and int8_scales is None and int8_calibration:
-            # calibrated where the members now live: on the device, in compute_dtype
+            # calibrated where the members now live: on the home device, in compute_dtype
             int8_scales = calibrate_members_int8(
                 members, int8_calibration, cfg, compute_dtype, int8_pointwise
             )
-            for name, model in members.items():
-                set_int8(model, int8_pointwise, int8_scales[name])
+            self.ensemble.set_int8(int8_pointwise, int8_scales)
         self.int8_scales = int8_scales
         self.timer = StageTimer()
 

@@ -8,7 +8,8 @@ so the image border never erodes inward.  Arrays are ``(..., H, W)`` floats.
 :func:`edge_weight_maps` is the training target's edge band; on a CUDA
 tensor it runs the hand-written kernel of
 :mod:`building_detection_tpu_torch.kernels.edge_weights`.  ``fill_holes``
-and ``majority_vote`` are not ported: production uses the host code in
+and ``majority_vote`` are still to port (``ROADMAP.md`` queue 1, item 4);
+the serving path's fusion runs the host code in
 ``building_detection_tpu_torch.post``.
 """
 from __future__ import annotations

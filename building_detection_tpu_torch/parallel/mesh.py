@@ -1,46 +1,70 @@
-"""The port's mesh: one process per device, over ``torch.distributed``.
+"""The port's mesh: the devices of a run's data axis.
 
 The counterpart of ``building_detection_tpu/parallel/mesh.py``.  JAX runs one
 controller over many devices: its ``Mesh`` spans every global device and XLA
-inserts the collectives.  torch runs one process per device, so here:
+inserts the collectives.  torch has two forms of it here:
 
-* a :class:`Mesh` is this process's view of the run: the ``data`` and
+* **Training runs one process per device**, over ``torch.distributed``.  A
+  :class:`Mesh` is this process's view of the run: the ``data`` and
   ``model`` sizes, its rank and the world size, its device and the process
-  group the data axis reduces over;
-* an array sharded over ``data`` is, on each rank, only that rank's rows:
-  :func:`data_rows`, :func:`shard_batch` and :func:`shard_staged` stand
-  where ``data_sharded``, ``shard_batch`` and ``staged_sharded`` stand
-  (rank ``r`` of ``d`` holds the ``r``-th of ``d`` equal contiguous parts,
-  the rows JAX's sharding gives the ``r``-th device of the data axis);
-* "replicated" means equal on every rank, which :func:`replicate` checks
-  by one broadcast from rank 0.
+  group the data axis reduces over.  An array sharded over ``data`` is, on
+  each rank, only that rank's rows: :func:`data_rows`, :func:`shard_batch`
+  and :func:`shard_staged` stand where ``data_sharded``, ``shard_batch`` and
+  ``staged_sharded`` stand (rank ``r`` of ``d`` holds the ``r``-th of ``d``
+  equal contiguous parts, the rows JAX's sharding gives the ``r``-th device
+  of the data axis), and "replicated" means equal on every rank, which
+  :func:`replicate` checks by one broadcast from rank 0.
+* **Inference runs one process over several local devices**:
+  ``make_mesh(devices=[d0, d1, ...])`` in a process with no process group
+  (or at world size 1) gives a mesh whose data axis is those devices, in
+  ``Mesh.devices``.  The predictors hold a replica of each member on every
+  distinct device of it (:func:`predictor_devices`) and run each device's
+  contiguous part of a tile batch there, member by member across the
+  devices (``infer.fused_ensemble.shard_forward``).  A list may
+  name a device more than once (``["cpu", "cpu"]``, ``["cuda:0",
+  "cuda:0"]``): each entry is one shard of the tile batch, and the entries
+  of one device share its replica, which is how a machine with one device
+  runs the split.
 
-Without a process group, or at world size 1, the mesh has ``data == 1`` and
-no group: nothing in the port then runs a collective, and a train step is
-the single-device step bit for bit.  ``model > 1`` (channel tensor
-parallelism, ``parallel/tp.py`` in the JAX package) is not ported yet.
+Without a process group, or at world size 1, a training mesh has ``data ==
+1`` and no group: nothing in the port then runs a collective, and a train
+step is the single-device step bit for bit.  Several local devices under a
+process group of more than one rank (the hybrid), and ``model > 1``
+(channel tensor parallelism, ``parallel/tp.py`` in the JAX package,
+``ROADMAP.md`` item 16), are not ported.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+
+from building_detection_tpu_torch.core.device import check_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
 
+CHANNEL_TP = (
+    "channel tensor parallelism (model > 1, tp=True; parallel/tp.py in the JAX package) is not ported yet: "
+    "ROADMAP.md item 16"
+)
+
+
 @dataclass(frozen=True)
 class Mesh:
-    """This process's place in a data-parallel run.
+    """A run's data axis, as this process sees it.
 
-    ``device`` is the device the mesh pins (``None``: the trainer's
-    ``device`` argument decides); ``group`` is the process group of the data
-    axis, ``None`` at ``data == 1``; ``backend`` is the process group's
-    backend, ``None`` without one.
+    ``device`` is the device the mesh pins (``None``: the trainer's or the
+    predictor's ``device`` argument decides); ``group`` is the process group
+    of the data axis, ``None`` at ``data == 1`` and on a mesh of local
+    devices; ``backend`` is the process group's backend, ``None`` without
+    one.  ``devices`` are this process's devices of the data axis, the
+    first of them ``device``: one entry for a training process, one entry
+    per shard on a mesh of local devices (:func:`make_mesh`).
     """
 
     data: int
@@ -50,6 +74,11 @@ class Mesh:
     device: Optional[torch.device] = None
     group: Optional[Any] = None
     backend: Optional[str] = None
+    devices: Tuple[Optional[torch.device], ...] = ()
+
+    def __post_init__(self):
+        if not self.devices:
+            object.__setattr__(self, "devices", (self.device,))
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -68,9 +97,10 @@ def data_axis_size(world_size: int, data: int = -1, model: int = 1, batch_size: 
 
 
 def check_covers_ranks(world_size: int, data: int, model: int = 1, batch_size: Optional[int] = None) -> None:
-    """Raise unless a ``data x model`` mesh uses every process exactly: a
+    """Raise unless a ``data x model`` mesh uses every process exactly (a
     rank outside the mesh would own no rows and idle, or block the others in
-    their first collective."""
+    their first collective) and a global batch of ``batch_size`` splits
+    over its data axis."""
     used = data * model
     if data < 1 or used > world_size:
         raise ValueError(
@@ -84,20 +114,22 @@ def check_covers_ranks(world_size: int, data: int, model: int = 1, batch_size: O
             f"(batch_size={batch_size} caps the data axis at {data}); raise --batch-size to cover every "
             "process or pass --data-parallel explicitly"
         )
-
-
-def _one_device(devices) -> Optional[torch.device]:
-    if devices is None:
-        return None
-    if isinstance(devices, (str, torch.device)):
-        return torch.device(devices)
-    devices = list(devices)
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"one process drives one device here, got {len(devices)}; several devices in one process "
-            "(tile and ensemble parallelism) are not ported yet"
+    if batch_size is not None and batch_size % data:
+        raise ValueError(
+            f"a global batch of {batch_size} does not split over data={data}: pass a --batch-size that {data} "
+            "divides, or --data-parallel -1 (the largest data axis the batch divides)"
         )
-    return torch.device(devices[0])
+
+
+def _local_devices(devices) -> Tuple[Optional[torch.device], ...]:
+    if devices is None:
+        return (None,)
+    if isinstance(devices, (str, torch.device)):
+        return (torch.device(devices),)
+    devices = tuple(torch.device(d) for d in devices)
+    if not devices:
+        raise ValueError("make_mesh(devices=[]) names no device")
+    return devices
 
 
 def make_mesh(
@@ -106,25 +138,84 @@ def make_mesh(
     devices: Union[None, str, torch.device, Sequence] = None,
     batch_size: Optional[int] = None,
 ) -> Mesh:
-    """The mesh over every process of the run (one process without a
-    process group).  ``devices`` is this process's device, or ``None`` to
-    leave it to the trainer; under NCCL it is the card
-    :func:`parallel.distributed.init_distributed` selected."""
+    """The mesh of this run.
+
+    With one device (or ``devices=None``) it spans every process of the run
+    (this one alone without a process group): ``devices`` is this process's
+    device, or ``None`` to leave it to the trainer; under NCCL it is the
+    card :func:`parallel.distributed.init_distributed` selected.
+
+    With several ``devices``, in a process without a process group or at
+    world size 1, the data axis is those local devices (``data=-1`` takes
+    all of them; an explicit ``data`` must equal their number), for the
+    predictors' tile data parallelism.  A device may appear more than once:
+    each entry is one shard."""
     if model != 1:
-        raise NotImplementedError(
-            "channel tensor parallelism (model > 1, parallel/tp.py in the JAX package) is not ported yet"
-        )
+        raise NotImplementedError(CHANNEL_TP)
     if dist.is_available() and dist.is_initialized():
         world, rank, backend = dist.get_world_size(), dist.get_rank(), dist.get_backend()
     else:
         world, rank, backend = 1, 0, None
+    local = _local_devices(devices)
+    if len(local) > 1:
+        if world > 1:
+            raise NotImplementedError(
+                f"{len(local)} local devices in each of {world} processes (several devices per process under a "
+                "process group) is not ported: run one process per device for training, or one process over "
+                "its local devices without a process group for inference"
+            )
+        if data not in (-1, len(local)):
+            raise ValueError(f"make_mesh(data={data}) over {len(local)} local devices: data must equal their number")
+        return Mesh(len(local), 1, rank, world, local[0], None, backend, local)
     data = data_axis_size(world, data, model, batch_size)
     check_covers_ranks(world, data, model, batch_size)
-    device = _one_device(devices)
+    device = local[0]
     if device is None and backend == "nccl":
         device = torch.device("cuda", torch.cuda.current_device())
     group = dist.group.WORLD if data > 1 else None
     return Mesh(data, model, rank, world, device, group, backend)
+
+
+def _canonical(device: torch.device) -> torch.device:
+    """``device`` as a tensor on it names it: ``cuda`` with the current
+    card's index, ``cpu`` without one."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    if device.type == "cpu":
+        return torch.device("cpu")
+    return device
+
+
+def predictor_devices(mesh: Optional[Mesh], device=None) -> Tuple[torch.device, ...]:
+    """The devices a predictor runs its tile shards on, the first one its
+    home (the scene canvas, the OR and the fetch): the mesh's data-axis
+    devices, or ``(device,)`` without a mesh.  ``device`` (default: the
+    card) stands for the entries the mesh leaves unnamed; a mesh that names
+    its devices takes no ``device``.  Every device passes
+    :func:`core.device.check_device`: a card that is not there raises here,
+    at set-up."""
+    if mesh is None:
+        entries: Tuple[Optional[torch.device], ...] = (None,)
+    elif not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh must be a building_detection_tpu_torch.parallel.mesh.Mesh (from make_mesh), "
+            f"got {type(mesh).__name__}"
+        )
+    elif mesh.world_size > 1:
+        raise NotImplementedError(
+            f"a predictor runs in one process, and this mesh spans {mesh.world_size}: pass a mesh of local devices"
+        )
+    elif mesh.model > 1:
+        raise NotImplementedError(CHANNEL_TP)
+    else:
+        entries = mesh.devices
+    if device is not None and any(d is not None for d in entries):
+        raise ValueError(f"the mesh names its devices {[str(d) for d in entries]}: pass device=None")
+    fill = torch.device(device if device is not None else "cuda")
+    named = [fill if d is None else d for d in entries]
+    for d in dict.fromkeys(named):
+        check_device(d)
+    return tuple(_canonical(d) for d in named)
 
 
 def data_rows(mesh: Mesh, n: int) -> slice:

@@ -39,8 +39,11 @@ package's ``Trainer(mesh=...)`` does over a mesh's data axis:
 * only the primary (rank 0) writes checkpoints and ``history.json``.
 
 At ``data == 1`` (no process group, or world size 1) no collective runs and
-the step is the single-device step bit for bit.  ``tp`` (channel tensor
-parallelism) is not ported yet, and refused with ``NotImplementedError``.
+the step is the single-device step bit for bit.  A mesh of several local
+devices (the predictors' tile data parallelism) is refused with a
+``ValueError``: training runs one process per device.  ``tp`` (channel
+tensor parallelism, ``ROADMAP.md`` item 16) is not ported yet, and refused
+with ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -154,7 +157,13 @@ class Trainer:
                 f"got {type(mesh).__name__}"
             )
         if tp:
-            raise NotImplementedError("channel tensor-parallel training (tp=True) is not ported yet")
+            raise NotImplementedError(pmesh.CHANNEL_TP)
+        if len(mesh.devices) > 1:
+            raise ValueError(
+                f"a mesh of {len(mesh.devices)} local devices is for inference: training over several devices runs "
+                "one process per device (bdt-train --coordinator HOST:PORT --num-processes N --process-id I, or "
+                "torchrun --nproc-per-node N ... --num-processes 0)"
+            )
         self.mesh = mesh
         self.device = _resolve_device(device, mesh)
         if isinstance(model_name, str):

@@ -21,6 +21,16 @@ default device (the card):
   against the whole scene (time, peak device memory, differing pixels), and
   in f32 with TF32 off, deterministic cuDNN and one tile a forward, blocked
   equal to whole on a 2048x2048 scene for the ensemble and one member;
+* inference over several devices in one process (``[tile_dp]``), on every
+  card when more than one is visible, else on ``cuda:0`` twice: in f32 with
+  TF32 off and deterministic cuDNN, ``FusedEnsemblePredictor(mesh=)`` and
+  ``Pipeline(mesh=)`` equal to one device where every tile meets the same
+  forward batch size, and ``EnsemblePredictor(devices=)`` equal to one
+  device; bf16 tiles/s and peak memory per device on the mesh against one
+  device (on 1, 2, 4 ... cards where there are several), the host's
+  enqueue time of a sharded chunk, differing pixels (counted, not gated);
+  and ``bdt-eval --data-parallel N --coordinator ...`` over N NCCL
+  processes (N = the cards visible) equal to a one-process ``bdt-eval``;
 * int8 pointwise convs: ``Pipeline(int8_pointwise=512, int8_calibration=...)``
   calibrated on the smoke scenes, ``predict_images`` through it (every active
   site through ``torch._int_mm``, counted), tiles/s and differing pixels
@@ -116,6 +126,10 @@ DP_STEPS = 4                      # bf16 steps each way under NCCL: 1 warm-up, t
 DP_GLOO_STEPS = 2                 # f32 steps of the two Gloo ranks sharing the card
 DP_LOSS_RTOL = 2e-4               # two ranks vs one process: the JAX package's DP tolerance
 DP_TIMEOUT_S = 600
+TILE_DP_SCENES = ((1024, 1024), (700, 1300))  # 9 and 8 tiles: 9 divides by no shard count above 1
+TILE_DP_RATE_SCENES = 24          # 1024^2 scenes timed in bf16: groups of 3, 6, 12 scenes on 1, 2, 4 shards, 27-tile forwards
+TILE_DP_BATCHES = (4, 2, 1)       # per-shard batch_tiles tried for the f32 check, largest first
+EVAL_RESULT = "eval launches "
 
 
 class SmokeFailure(RuntimeError):
@@ -612,6 +626,224 @@ def phase_blocked(pipe):
         restore_backends(saved)
     del fused, one
     torch.cuda.empty_cache()
+
+
+def tile_batches(tiles: int, batch: int, shards: int) -> list:
+    """The forward batch size each tile of a one-scene dispatch meets in the
+    fused predictor: chunks of ``batch * shards`` tiles, each split into
+    ``shards`` equal parts after padding to a multiple of ``shards``."""
+    out = []
+    for start in range(0, tiles, batch * shards):
+        m = min(batch * shards, tiles - start)
+        out += [-(-m // shards)] * m
+    return out
+
+
+def sync_all(devices) -> None:
+    import torch
+
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
+
+
+def phase_tile_dp(pipe, here: str, smi: str) -> int:
+    """Inference over several devices in one process, then ``bdt-eval`` over
+    NCCL processes (see the module docstring).  Returns the edge-kernel
+    launches of the ``bdt-eval`` processes' ``make_targets``."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu_torch.core.config import TilerConfig
+    from building_detection_tpu_torch.infer.engine import EnsemblePredictor
+    from building_detection_tpu_torch.infer.fused_ensemble import DEFAULT_BATCH_TILES, FusedEnsemblePredictor
+    from building_detection_tpu_torch.infer.pipeline import Pipeline
+    from building_detection_tpu_torch.ops import tiling as T
+    from building_detection_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(n_cards)] if n_cards > 1 else ["cuda:0", "cuda:0"]
+    k = len(devices)
+    mesh = make_mesh(devices=devices)
+    say("tile_dp", f"mesh over {devices}: " + ("every visible card" if n_cards > 1 else "cuda:0 twice, one card visible"))
+    rng = np.random.RandomState(SEED + 40)
+    imgs = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8) for h, w in TILE_DP_SCENES]
+    counts = [T.plan_tiles(*img.shape[:2], TilerConfig()).num_tiles for img in imgs]
+    base = seeded_members(SEED)
+
+    saved = exact_f32()
+    try:
+        batch = next(b for b in TILE_DP_BATCHES if all(tile_batches(n, b, 1) == tile_batches(n, b, k) for n in counts))
+        one = FusedEnsemblePredictor(copy.deepcopy(base), TilerConfig(), batch, torch.float32)
+        meshed = FusedEnsemblePredictor(copy.deepcopy(base), TilerConfig(), batch, torch.float32, mesh=mesh)
+        check(meshed.batch_tiles == batch * k and list(meshed.replicas) == list(dict.fromkeys(meshed.devices)),
+              f"the mesh predictor holds {meshed.batch_tiles} tiles a chunk on {list(meshed.replicas)}")
+        for img in imgs:
+            want, got = one.predict_masks(img), meshed.predict_masks(img)
+            for name in one.names:
+                check(np.array_equal(got[name], want[name]),
+                      f"f32 mesh {name}: {int((got[name] != want[name]).sum())} pixels differ from one device on a "
+                      f"{img.shape[0]}x{img.shape[1]} scene")
+        del meshed, one
+        torch.cuda.empty_cache()
+        ens_one = EnsemblePredictor(copy.deepcopy(base), TilerConfig(), DEFAULT_BATCH_TILES, torch.float32)
+        ens_dev = EnsemblePredictor(copy.deepcopy(base), TilerConfig(), DEFAULT_BATCH_TILES, torch.float32,
+                                    devices=devices)
+        placed = [str(p.device) for p in ens_dev.predictors.values()]
+        want, got = ens_one.predict_masks(imgs[0]), ens_dev.predict_masks(imgs[0])
+        for name in ens_one.names:
+            check(np.array_equal(got[name], want[name]),
+                  f"f32 EnsemblePredictor(devices=) {name}: {int((got[name] != want[name]).sum())} pixels differ")
+        del ens_one, ens_dev
+        say("tile_dp", f"f32, TF32 off, deterministic cuDNN, scenes of {counts} tiles: FusedEnsemblePredictor(mesh=) "
+                       f"at batch_tiles={batch} a shard equals one device at batch_tiles={batch} (forward batch per "
+                       f"tile {[tile_batches(n, batch, k) for n in counts]} on both); on the {counts[0]}-tile scene "
+                       f"EnsemblePredictor(devices=) with members on {placed} equals one device")
+    finally:
+        restore_backends(saved)
+    torch.cuda.empty_cache()
+
+    # bf16 through the entry point, then tiles/s: one device against meshes of 2, 4 ... cards (or cuda:0 twice)
+    piped = Pipeline(compute_dtype=torch.bfloat16, seed=SEED, mesh=mesh)
+    check(piped.ensemble.devices == mesh.devices and piped.ensemble.batch_tiles == DEFAULT_BATCH_TILES * k,
+          f"Pipeline(mesh=) built {piped.ensemble.devices}, {piped.ensemble.batch_tiles} tiles a chunk")
+    smoke = scenes()
+    check_results(smoke, piped.predict_images(smoke), piped.ensemble.names)
+    say("tile_dp", "bf16 Pipeline(mesh=).predict_images over the 4 smoke scenes: well formed, blank degenerate scene")
+    runs = {"one device": pipe.ensemble}
+    for m in (2, 4):
+        if m < n_cards:
+            runs[f"cuda:0..{m - 1}"] = FusedEnsemblePredictor(
+                copy.deepcopy(base), TilerConfig(), DEFAULT_BATCH_TILES, torch.bfloat16,
+                mesh=make_mesh(devices=[f"cuda:{i}" for i in range(m)]))
+    runs[",".join(devices) if n_cards == 1 else f"cuda:0..{n_cards - 1}"] = piped.ensemble
+    del base
+    scenes_bf16 = [rng.randint(0, 256, (1024, 1024, 3)).astype(np.uint8) for _ in range(TILE_DP_RATE_SCENES)]
+    tiles = 9 * TILE_DP_RATE_SCENES
+    order = list(runs)
+    masks, rates = {}, {}
+    for label in order:  # warm-up: first launches and cuDNN's choices for the 27-tile forward
+        runs[label].predict_masks_many(scenes_bf16[: 3 * len(runs[label].devices)])
+    for label in order + order[::-1]:
+        ens = runs[label]
+        sync_all(ens.devices)
+        for d in dict.fromkeys(ens.devices):
+            torch.cuda.reset_peak_memory_stats(d)
+        start = time.perf_counter()
+        out = ens.predict_masks_many(scenes_bf16)
+        secs = time.perf_counter() - start  # the fetch of the last bitplanes waited for every shard
+        masks.setdefault(label, out)
+        peaks = {str(d): round(torch.cuda.max_memory_allocated(d) / 2**30, 3) for d in dict.fromkeys(ens.devices)}
+        rates.setdefault(label, []).append(f"{tiles / secs:.2f} tiles/s, peak {json.dumps(peaks)} GiB")
+    for label in order:
+        diff = {n: sum(int((a[n] != b[n]).sum()) for a, b in zip(masks[label], masks["one device"]))
+                for n in pipe.ensemble.names}
+        say("tile_dp", f"bf16 {label}: {tiles} tiles in {TILE_DP_RATE_SCENES} 1024x1024 scenes, 27-tile forwards, "
+                       f"batch_tiles={DEFAULT_BATCH_TILES} a shard: {'; '.join(rates[label])} (in turns "
+                       f"{order + order[::-1]} after a warm-up; host clock); pixels differing from one device "
+                       f"{json.dumps(diff)} ({smi})")
+    widest = piped.ensemble
+    with torch.inference_mode():
+        for per_shard in (1, 27):
+            chunk = (torch.rand((per_shard * k, 512, 512, 3), device=widest.device) * 2 - 1).to(torch.bfloat16)
+            widest.sharded_bits(chunk)
+            sync_all(widest.devices)
+            start = time.perf_counter()
+            bits = widest.sharded_bits(chunk)
+            enqueued = time.perf_counter() - start
+            bits.cpu()
+            done = time.perf_counter() - start
+            say("tile_dp", f"bf16 chunk of {per_shard} tile(s) a shard over {devices} (sharded_bits): the host "
+                           f"returned from enqueuing the five members on every shard after {enqueued * 1e3:.1f} ms, the bits were "
+                           f"back after {done * 1e3:.1f} ms ({smi})")
+    del runs, piped, widest, chunk, bits, masks
+    torch.cuda.empty_cache()
+
+    eval_launches = tile_dp_eval(here, smi)
+    say("tile_dp", f"phase {time.perf_counter() - t0:.1f} s")
+    return eval_launches
+
+
+def exact_eval_child(argv) -> int:
+    """``chip_smoke.py --exact-eval ARGS``: ``bdt-eval ARGS`` in f32 with TF32
+    off and deterministic cuDNN, then its edge-kernel launches on a line of
+    their own."""
+    from building_detection_tpu_torch.cli import evaluate
+    from building_detection_tpu_torch.kernels import edge_weights as K
+
+    exact_f32()
+    K.edge_weight_maps.launches = 0
+    rc = evaluate.main(argv)
+    print(EVAL_RESULT + json.dumps({"launches": K.edge_weight_maps.launches}), flush=True)
+    return rc
+
+
+def tile_dp_eval(here: str, smi: str) -> int:
+    """``bdt-eval res34 --data-parallel N --coordinator ... --num-processes N``
+    over N NCCL processes, N the cards visible, against one ``bdt-eval``
+    process on the same checkpoint and images: the metrics equal, the loss
+    within 1e-6 relative, one JSON line from rank 0.  Returns the
+    processes' edge-kernel launches."""
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from building_detection_tpu_torch.core.config import TrainConfig
+    from building_detection_tpu_torch.parallel import dryrun
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    n = torch.cuda.device_count()
+    me = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory(dir=here) as work:
+        for sub in ("img", "lab"):
+            os.makedirs(os.path.join(work, sub))
+        for i in range(8):
+            img, lab = train_batch(SEED + 50 + i, 1, 64)
+            Image.fromarray(img[0]).save(os.path.join(work, "img", f"{i}.png"))
+            Image.fromarray(lab[0]).save(os.path.join(work, "lab", f"{i}.png"))
+        tr = Trainer(DP_MEMBER, TrainConfig(batch_size=8, image_size=64, warmup_epochs=0), seed=SEED)
+        tr.train_on_batch(*train_batch(SEED + 60, 8, 64))  # moving BN statistics away from their start
+        ckpt = os.path.join(work, "ck.npz")
+        tr.save(ckpt)
+        del tr
+        torch.cuda.empty_cache()
+        args = [DP_MEMBER, "--checkpoint", ckpt, "--images", os.path.join(work, "img"), "--labels",
+                os.path.join(work, "lab"), "--batch-size", "8", "--image-size", "64", "--precision", "f32"]
+        env = port_env(here)
+        port = dryrun.free_port()
+        start = time.perf_counter()
+        *ranks, alone = dryrun.run_processes([
+            [sys.executable, me, "--exact-eval", *args, "--data-parallel", str(n), "--coordinator",
+             f"127.0.0.1:{port}", "--num-processes", str(n), "--process-id", str(r)] for r in range(n)
+        ] + [[sys.executable, me, "--exact-eval", *args]], env, DP_TIMEOUT_S, cwd=here)
+        multi_s = time.perf_counter() - start
+
+    def parse(run, what):
+        rc, out = run
+        check(rc == 0, f"{what} exited {rc}: {out[-4000:]}")
+        lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+        launches = json.loads(next(ln for ln in out.splitlines() if ln.startswith(EVAL_RESULT))[len(EVAL_RESULT):])
+        return lines, launches["launches"]
+
+    parsed = [parse(r, f"bdt-eval rank {i} of {n}") for i, r in enumerate(ranks)]
+    (want,), want_launches = parse(alone, "bdt-eval, one process")
+    check(len(parsed[0][0]) == 1 and not any(lines for lines, _ in parsed[1:]),
+          f"bdt-eval over {n} processes printed {[len(lines) for lines, _ in parsed]} JSON lines by rank, "
+          "not one from rank 0")
+    got = parsed[0][0][0]
+    rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    launches = [l for _, l in parsed]
+    say("tile_dp", f"bdt-eval {DP_MEMBER} --data-parallel {n} over {n} NCCL process(es), 8 samples of 64x64, batch 8, "
+                   f"f32 (TF32 off): {json.dumps(got)}; one process beside them {json.dumps(want)} ({multi_s:.1f} s "
+                   f"wall for both); loss "
+                   f"rel |d| {rel:.2e} (rtol 1e-6); edge-kernel launches by rank {launches}, one process "
+                   f"{want_launches} ({smi})")
+    check(sorted(got) == sorted(want) and all(got[m] == want[m] for m in want if m != "loss"),
+          "bdt-eval over processes: the metrics differ from one process")
+    check(rel <= 1e-6, f"bdt-eval over processes: the loss differs by rel {rel}")
+    check(launches == [1] * n and want_launches == 1, "bdt-eval: not one edge-kernel launch a batch on each process")
+    return sum(launches)
 
 
 def int8_sites(model, min_ch: int):
@@ -1399,6 +1631,7 @@ def main() -> int:
     phase_serving(pipe)
     phase_engine(pipe)
     phase_blocked(pipe)
+    eval_launches = phase_tile_dp(pipe, here, smi)
     phase_sweep(pipe)
     phase_int_mm()
     int_mm_calls = phase_int8(pipe)
@@ -1418,10 +1651,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=here) as work:
         dp_launches, dp_plain_launches = phase_dp(here, work, smi)
     serving_launches = launches["edge_weight_maps"]
-    launches["edge_weight_maps"] += train_launches + remat_launches + dp_launches + dp_plain_launches
+    launches["edge_weight_maps"] += train_launches + remat_launches + dp_launches + dp_plain_launches + eval_launches
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; edge-kernel launches: serving path "
                 f"{serving_launches}, training path {train_launches}, remat steps {remat_launches}, data-parallel "
-                f"steps {dp_launches}, the [dp] phase's plain comparison steps {dp_plain_launches}; torch._int_mm "
+                f"steps {dp_launches}, the [dp] phase's plain comparison steps {dp_plain_launches}, the [tile_dp] "
+                f"phase's bdt-eval processes {eval_launches}; torch._int_mm "
                 f"launches on the int8 path {int_mm_calls}")
     kernels = [{
         "name": "edge_weight_maps",
@@ -1441,6 +1675,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-child"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(dp_child(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--exact-eval"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(exact_eval_child(sys.argv[2:]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -1,9 +1,11 @@
 """PyTorch port on a CUDA card: the edge-weight kernel against its plain twin,
 ``normalize``, the fused predictor, the per-model engine and the blocked
-path on the card against the CPU, a full-width ``Trainer`` step, which
-launches the kernel once, ``torch._int_mm`` and the int8 predictor against
-the CPU, a ``remat`` step against a plain one, and a data-parallel step
-(NCCL, world size 1, in a child process) against a plain one.
+path on the card against the CPU, the fused predictor on a mesh of cards
+(``cuda:0`` twice, and every card) against one card, a full-width
+``Trainer`` step, which launches the kernel once, ``torch._int_mm`` and the
+int8 predictor against the CPU, a ``remat`` step against a plain one, and a
+data-parallel step (NCCL, world size 1, in a child process) against a plain
+one.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -127,6 +129,35 @@ def test_fused_predictor_on_card_matches_cpu(cuda):
     for g, w in zip(got, want):
         for name in NAMES:
             np.testing.assert_array_equal(g[name], w[name])
+
+
+@pytest.mark.cuda
+def test_fused_predictor_on_a_mesh_matches_one_device(cuda):
+    """Tile data parallelism on the card, f32 with TF32 off and deterministic
+    cuDNN, one tile a forward (equal per-forward batch shapes on every
+    layout): the fused predictor on ``["cuda:0", "cuda:0"]``, and on every
+    card when there are more, gives the one-device masks."""
+    from building_detection_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = TilerConfig(tile=64, stride=48, overlap=16)
+    imgs = scenes(8, [(200, 260), (200, 260), (150, 140), (10, 12)])
+    layouts = [["cuda:0", "cuda:0"]]
+    if torch.cuda.device_count() > 1:
+        layouts.append([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        False, True, False)
+    try:
+        want = FusedEnsemblePredictor(tiny_members(), cfg, 1, torch.float32, cuda).predict_masks_many(imgs)
+        for devices in layouts:
+            pred = FusedEnsemblePredictor(tiny_members(), cfg, 1, torch.float32, mesh=make_mesh(devices=devices))
+            assert pred.batch_tiles == len(devices)
+            assert [str(d) for d in pred.replicas] == sorted(set(devices))
+            for g, w in zip(pred.predict_masks_many(imgs, max_in_flight=2), want):
+                for name in NAMES:
+                    np.testing.assert_array_equal(g[name], w[name], err_msg=f"{devices} {name}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
 @pytest.mark.cuda

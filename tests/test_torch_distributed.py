@@ -16,6 +16,10 @@
   message on both paths.
 * The CLI under ``torchrun --nproc-per-node 2`` with ``--num-processes 0``.
 * ``parallel.dryrun.dryrun_multichip(2, device="cpu")``.
+* ``bdt-eval --data-parallel 2`` over two processes: one JSON line, from
+  rank 0, equal to the one-process port and to the JAX ``bdt-eval
+  --data-parallel 2``; a batch the processes do not split fails with
+  ``check_covers_ranks``'s message.
 
 No process group is ever started in the pytest process.  The children are
 started by :func:`parallel.dryrun.run_processes` (``Popen`` with an explicit
@@ -221,6 +225,72 @@ def test_cli_under_torchrun(tmp_path):
     assert rc == 0, out[-6000:]
     assert "process 0: feeding 8 samples" in out and "process 1: feeding 8 samples" in out, out
     assert load_variables(str(tmp_path / "ck" / "epoch_1_weights.npz"))[3] == 2
+
+
+# -- bdt-eval over processes ---------------------------------------------------------------
+def eval_args(img_dir, lab_dir, ckpt, batch_size=8):
+    return ["scse", "--checkpoint", ckpt, "--images", img_dir, "--labels", lab_dir, "--batch-size", str(batch_size),
+            "--image-size", "16", "--precision", "f32"]
+
+
+def eval_ranks(args, port, n=2):
+    return lambda i: [sys.executable, "-m", "building_detection_tpu_torch.cli.evaluate", *args, "--device", "cpu",
+                      "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n), "--process-id", str(i)]
+
+
+def json_lines(out):
+    return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+
+
+def test_eval_cli_two_processes_match_one_process_and_jax(tmp_path, capsys):
+    """``bdt-eval --data-parallel 2`` over two Gloo processes: one JSON line,
+    from rank 0, equal to the one-process port (metrics equal, loss within
+    1e-6 relative) and to the JAX ``bdt-eval --data-parallel 2`` on the
+    suite's virtual devices at the port's eval tolerances (rel 1e-5; the
+    line rounds to 6 places, so abs 1e-6)."""
+    from building_detection_tpu.cli import evaluate as jax_eval_cli
+    from building_detection_tpu_torch.cli import evaluate as eval_cli
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    img_dir, lab_dir = write_pairs(tmp_path, 24)
+    tr = Trainer("scse", TrainConfig(batch_size=8, image_size=16), device="cpu")
+    imgs, labs = batches(seed=5, n=8)
+    tr.train_on_batch(imgs, labs)  # moving BN statistics away from their start
+    ckpt = str(tmp_path / "ck.npz")
+    tr.save(ckpt)
+    args = eval_args(img_dir, lab_dir, ckpt)
+    results = run_ranks(eval_ranks([*args, "--data-parallel", "2"], dryrun.free_port()), tmp_path)
+    assert_all_ok(results, "bdt-eval --data-parallel 2")
+    (two,) = json_lines(results[0][1])
+    assert json_lines(results[1][1]) == [], "process 1 printed a result"
+    assert eval_cli.main([*args, "--device", "cpu"]) == 0
+    (one,) = json_lines(capsys.readouterr().out)
+    assert jax_eval_cli.main([*args, "--data-parallel", "2"]) == 0
+    (jax_two,) = json_lines(capsys.readouterr().out)
+    assert two["samples"] == one["samples"] == jax_two["samples"] == 24
+    assert sorted(two) == sorted(one) == sorted(jax_two)
+    for k in one:
+        if k == "loss":
+            assert two[k] == pytest.approx(one[k], rel=1e-6), k
+        else:
+            assert two[k] == one[k], k
+        assert two[k] == pytest.approx(jax_two[k], rel=1e-5, abs=1e-6), k
+
+
+@pytest.mark.parametrize("data,match", [("2", r"batch of 3 does not split over data=2.*--batch-size"),
+                                        ("-1", r"excludes rank\(s\) \[1\].*--batch-size")],
+                         ids=["explicit", "gcd"])
+def test_eval_cli_batch_not_dividing_fails_actionably(tmp_path, data, match):
+    """A global batch of 3 over two processes: ``--data-parallel 2`` does not
+    split it, and ``-1`` caps the data axis at gcd(3, 2) = 1, leaving rank 1
+    out; both fail at set-up with ``check_covers_ranks``'s message."""
+    import re
+
+    img_dir, lab_dir = write_pairs(tmp_path, 6)
+    args = eval_args(img_dir, lab_dir, str(tmp_path / "absent.npz"), batch_size=3)
+    results = run_ranks(eval_ranks([*args, "--data-parallel", data], dryrun.free_port()), tmp_path)
+    assert all(rc != 0 for rc, _ in results), results
+    assert all(re.search(match, out) for _, out in results), results
 
 
 def test_dryrun_multichip_two_cpu_processes():

@@ -29,6 +29,7 @@ from building_detection_tpu_torch.core.module import Namer, load_jax_variables
 from building_detection_tpu_torch.infer.engine import EnsemblePredictor, TiledPredictor
 from building_detection_tpu_torch.infer.fused_ensemble import FusedEnsemblePredictor
 from building_detection_tpu_torch.nn import layers as L
+from building_detection_tpu_torch.parallel.mesh import make_mesh
 from test_engine import reference_loop, tiny_model
 from test_torch_cuda import NAMES, scenes, tiny_members, tiny_variables
 from test_torch_pipeline import tiny_member
@@ -187,21 +188,33 @@ def test_predictor_owns_its_model(variables):
 
 
 def test_multi_device_and_int8_options_are_refused(variables):
-    """The multi-device options are still refused (slice 3).  int8 pointwise
-    convs are ported: the options reach every layer of the owned models, and
-    the int8 engine gives the JAX int8 engine's masks on the same scales."""
+    """Of the multi-device options only channel TP is still refused (item
+    16), and a mesh must be a ``parallel.mesh.Mesh``: a mesh of two devices
+    and ``EnsemblePredictor(devices=...)`` give the one-device masks
+    (``test_torch_tile_parallel.py`` holds them against the JAX package).
+    int8 pointwise convs are ported: the options reach every layer of the
+    owned models, and the int8 engine gives the JAX int8 engine's masks on
+    the same scales."""
     model = port_model(*variables)
-    for kwargs in ({"mesh": object()}, {"tp": True}):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            TiledPredictor(model, CFG, 4, torch.float32, "cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        TiledPredictor(model, CFG, 4, torch.float32, "cpu", tp=True)
+    with pytest.raises(TypeError, match=r"parallel\.mesh\.Mesh"):
+        TiledPredictor(model, CFG, 4, torch.float32, "cpu", mesh=object())
+    (img,) = scenes(12, [(70, 90)])
+    meshed = TiledPredictor(port_model(*variables), CFG, 2, torch.float32, mesh=make_mesh(devices=["cpu", "cpu"]))
+    np.testing.assert_array_equal(meshed.predict_mask(img), TiledPredictor(model, CFG, 4, torch.float32, "cpu")
+                                  .predict_mask(img))
     for kwargs in ({"int8_pointwise": True}, {"int8_scales": {"conv2d_1": 1.5}}):
         pred = TiledPredictor(port_model(*variables), CFG, 4, torch.float32, "cpu", **kwargs)
         layers = {m.jax_name: m for m in pred.model.modules() if hasattr(m, "jax_name")}
         assert all(m.int8_pointwise is kwargs.get("int8_pointwise", False) for m in layers.values())
         assert layers["conv2d_1"].int8_scale == kwargs.get("int8_scales", {}).get("conv2d_1")
         assert layers["conv2d"].int8_scale is None
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        EnsemblePredictor(tiny_members(), CFG, 4, torch.float32, devices=["cpu", "cpu"])
+    two = EnsemblePredictor(tiny_members(), CFG, 4, torch.float32, devices=["cpu", "cpu"])
+    alone = EnsemblePredictor(tiny_members(), CFG, 4, torch.float32, "cpu")
+    got, want = two.predict_masks(img), alone.predict_masks(img)
+    for name in NAMES:
+        np.testing.assert_array_equal(got[name], want[name])
     scales = {n: {"conv2d_1": 1.0 + 0.25 * i} for i, n in enumerate(NAMES)}
     ens = EnsemblePredictor(tiny_members(), CFG, 4, torch.float32, "cpu", int8_pointwise=True, int8_scales=scales)
     jax_ens = JaxEnsemble({n: (tiny_member, *tiny_variables(i)) for i, n in enumerate(NAMES)}, JCFG, 4,
