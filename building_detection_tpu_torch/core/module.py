@@ -65,6 +65,13 @@ def to_jax_layout(a: np.ndarray) -> np.ndarray:
     return a.transpose(_TO_JAX[a.ndim]) if a.ndim in _TO_JAX else a
 
 
+def torch_axis(jax_axis: int, ndim: int) -> int:
+    """The axis of the port's layout that holds axis ``jax_axis`` of an
+    ``ndim``-D JAX array."""
+    perm = _TO_TORCH.get(ndim)
+    return jax_axis if perm is None else perm.index(jax_axis)
+
+
 # -- Keras initialisers (drawn in the JAX layout) ---------------------------
 def _fans(shape: Shape) -> Tuple[float, float]:
     """``jax.nn.initializers`` fans: in axis -2, out axis -1, the leading
@@ -120,8 +127,17 @@ class KerasLayer(nn.Module):
     whose ranks hold the other rows of a data-parallel batch: train-mode
     BatchNorm takes its statistics over all of them.  ``None`` (one
     process, or world size 1) reduces over the local batch only.
+
+    ``TP_GROUPS`` names, by first leaf, the layer's parameter groups that
+    share one out-channel axis, each with whether its channels are the
+    input's (BatchNorm, the depthwise step); ``tp`` (set by
+    ``parallel/tp.py``) maps a group sharded under channel tensor
+    parallelism to its plan (``nn.layers.ProcessShards`` or
+    ``DeviceShards``).  ``None``: every group computes whole.
     """
 
+    TP_GROUPS: Dict[str, Tuple[Tuple[str, ...], bool]] = {}
+    tp: Optional[Dict[str, Callable]] = None
     compute_dtype: Optional[torch.dtype] = None
     data_group: Optional[Any] = None
     int8_pointwise: Union[bool, int] = False
@@ -231,6 +247,19 @@ def jax_params(model: nn.Module) -> Dict[str, nn.Parameter]:
     """The model's trainable parameters keyed by their JAX names, in the
     port's layouts (the optimizer's view of the model)."""
     return {k: t for k, (_, _, t) in _keyed(model)["params"].items()}
+
+
+def jax_templates(model: nn.Module) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """``(params, state)`` keyed as :func:`jax_variables`, each a read-only
+    f32 zero array of the tensor's full JAX shape: the templates a loaded
+    checkpoint is checked against, also where a tensor-parallel rank holds
+    only a slice of the tensor."""
+    zero, keyed = np.zeros((), np.float32), _keyed(model)
+    params, state = (
+        {key: np.broadcast_to(zero, layer.inits[leaf][0]) for key, (layer, leaf, _) in keyed[kind].items()}
+        for kind in ("params", "state")
+    )
+    return params, state
 
 
 def jax_variables(model: nn.Module) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:

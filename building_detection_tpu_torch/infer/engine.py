@@ -16,8 +16,10 @@ overlaps uploads, compute and downloads.  Every host buffer a copy reads
 or writes stays referenced by the handle until :meth:`TiledPredictor.fetch`
 has waited for it.
 
-``TiledPredictor(mesh=)`` shards each chunk of tiles over a mesh of local
-devices as the fused predictor does (``fused_ensemble.shard_forward``);
+``TiledPredictor(mesh=)`` shards each chunk of tiles over the data rows of a
+mesh of local devices as the fused predictor does
+(``fused_ensemble.shard_forward``), and with ``tp=True`` also shards the
+model's channels over each row's model devices (``parallel/tp.py``);
 ``EnsemblePredictor(devices=)`` places the members round-robin on several
 devices, uploads each scene once per distinct device and dispatches every
 member before it fetches any.
@@ -41,7 +43,8 @@ from building_detection_tpu_torch.infer.fused_ensemble import (
     upload_pinned,
 )
 from building_detection_tpu_torch.ops import tiling as T
-from building_detection_tpu_torch.parallel.mesh import CHANNEL_TP, predictor_devices
+from building_detection_tpu_torch.parallel.mesh import predictor_devices
+from building_detection_tpu_torch.parallel.tp import tp_device_replicas
 
 
 class TiledPredictor:
@@ -54,10 +57,15 @@ class TiledPredictor:
     ``int8_pointwise`` and ``int8_scales`` (``{site: amax}``) opt it into
     int8 pointwise convs (:func:`core.module.set_int8`): NOT mask-parity.
     ``mesh`` (a mesh of local devices) shards each chunk of tiles over its
-    data axis, ``batch_tiles`` per shard, with a replica of the model on
-    each distinct device (see :class:`~building_detection_tpu_torch.infer.
-    fused_ensemble.FusedEnsemblePredictor`).  ``tp`` (channel tensor
-    parallelism) is refused: ``ROADMAP.md`` item 16.
+    data axis, ``batch_tiles`` per data row, with a replica of the model on
+    the first device of each row (see :class:`~building_detection_tpu_torch.
+    infer.fused_ensemble.FusedEnsemblePredictor`).  ``tp=True`` on a mesh
+    with ``model > 1`` is channel tensor parallelism, as in the JAX package:
+    each row's replica keeps the out-channel slices of its sharded layers on
+    the row's model devices and runs each slice there
+    (:func:`parallel.tp.tp_device_replicas`).  Without a mesh, or at
+    ``model == 1``, ``tp`` changes nothing; without ``tp`` a model axis only
+    repeats each row's work, so it runs once.
     """
 
     def __init__(
@@ -72,12 +80,14 @@ class TiledPredictor:
         int8_pointwise: bool = False,
         int8_scales: Optional[dict] = None,
     ):
-        if tp:
-            raise NotImplementedError(CHANNEL_TP)
         self.devices = predictor_devices(mesh, device)
         self.device = self.devices[0]
+        self.tp = bool(tp) and mesh is not None and mesh.model > 1
         self.model = set_int8(cast_params(model.to(self.device).eval(), compute_dtype), int8_pointwise, int8_scales)
-        self.replicas = replicate_model(self.model, self.devices)
+        if self.tp:
+            self.replicas = tp_device_replicas(self.model, mesh)
+        else:
+            self.replicas = replicate_model(self.model, self.devices)
         self.cfg = cfg
         self.batch_tiles = batch_tiles * len(self.devices)
         self.compute_dtype = compute_dtype

@@ -129,6 +129,20 @@ def shard_forward(stages: Sequence[Stage], tiles: torch.Tensor, devices: Sequenc
     return torch.cat([r.to(home, non_blocking=True) for r in results])[:n]
 
 
+def check_data_only(mesh) -> None:
+    """The JAX package's refusal of a mesh with a model axis on the fused
+    path: tiles shard over the data axis only.  The members' channel
+    structures differ (728-channel Xception, 1024-channel U-Net, 32-256
+    channel HRNet branches), so one model axis cannot partition them
+    evenly; channel TP runs one member at a time
+    (``TiledPredictor(tp=True)``)."""
+    if mesh is not None and getattr(mesh, "model", 1) > 1:
+        raise ValueError(
+            "FusedEnsemblePredictor supports data-axis sharding only; got a mesh with model axis > 1. Use a "
+            "data-only mesh, or per-member TiledPredictor(tp=True) for channel TP."
+        )
+
+
 def replicate_model(model: nn.Module, devices: Sequence[torch.device]) -> Dict[torch.device, nn.Module]:
     """``{device: replica}`` over the distinct ``devices``: ``model`` itself
     (already on ``devices[0]``) and a deep copy on each other device."""
@@ -153,8 +167,7 @@ class FusedEnsemblePredictor:
     smaller count.  Each member has one replica per distinct device, with
     the same int8 options; the mesh names the devices, so ``device`` stays
     ``None``.  A mesh with a ``model`` axis raises ``ValueError``, as in the
-    JAX package: the members' channel structures differ, so one model axis
-    cannot partition them.
+    JAX package (:func:`check_data_only`).
     """
 
     # Scene-group sizes: quantizing bounds the shapes a serving batcher
@@ -172,11 +185,7 @@ class FusedEnsemblePredictor:
         int8_scales: Optional[Dict[str, Dict[str, float]]] = None,
         mesh=None,
     ):
-        if mesh is not None and getattr(mesh, "model", 1) > 1:
-            raise ValueError(
-                "FusedEnsemblePredictor supports data-axis sharding only; got a mesh with model axis > 1. "
-                "Use a data-only mesh."
-            )
+        check_data_only(mesh)
         self.devices = predictor_devices(mesh, device)
         self.device = self.devices[0]
         self.names = list(members)

@@ -26,6 +26,7 @@ from building_detection_tpu_torch.infer.engine import EnsemblePredictor
 from building_detection_tpu_torch.infer.fused_ensemble import (
     DEFAULT_BATCH_TILES,
     FusedEnsemblePredictor,
+    check_data_only,
 )
 from building_detection_tpu_torch.infer.large_scene import predict_masks_blocked
 from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER, build_model, init_model
@@ -156,7 +157,9 @@ class Pipeline:
     dispatches, so tile-parallel too.  The mesh names the devices, so
     ``device`` stays ``None``.  Unlike the JAX package, which drops a mesh
     under ``fused=False``, ``Pipeline(fused=False, mesh=...)`` raises a
-    ``ValueError``: the mesh needs ``fused=True``.
+    ``ValueError``: the mesh needs ``fused=True``.  A mesh with a ``model``
+    axis raises the fused predictor's ``ValueError``, before any weight
+    loads.
 
     ``max_scene_tiles``: scenes whose tile grid exceeds it run through the
     blocked path (``infer/large_scene.py``), blocks of ``batch_tiles`` tiles,
@@ -192,6 +195,7 @@ class Pipeline:
     ):
         if mesh is not None and not fused:
             raise ValueError("Pipeline(mesh=...) needs fused=True: the per-model engine takes no mesh here")
+        check_data_only(mesh)
         home = predictor_devices(mesh, device)[0]  # every device checked before any weight loads
         self.cfg = cfg
         self.batch_tiles = batch_tiles

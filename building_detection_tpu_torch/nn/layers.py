@@ -21,15 +21,21 @@ package, which follows Keras:
   its input to the same dtype, as the JAX layers cast to ``compute_dtype``
   (:meth:`core.module.KerasLayer.cast`); BN statistics stay f32.
 
-Two opt-ins of the JAX package live here too: int8 pointwise convs for
+Three opt-ins of the JAX package live here too: int8 pointwise convs for
 serving (:func:`int8_pointwise_conv`, switched on per model by
-:func:`core.module.set_int8`) and rematerialised stages for training
-(:func:`stage`, switched on by :func:`core.module.set_remat`).
+:func:`core.module.set_int8`), rematerialised stages for training
+(:func:`stage`, switched on by :func:`core.module.set_remat`) and channel
+tensor parallelism.  Under TP (``parallel/tp.py`` decides which parameters
+shard and installs the plans) each layer computes the out-channels of its
+sharded parameter groups (``TP_GROUPS``) shard by shard and returns the full
+tensor, the activation applied after the gather: :class:`ProcessShards`
+over the ranks of a model group (training), :class:`DeviceShards` over the
+local devices of a mesh row (inference).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +51,7 @@ from building_detection_tpu_torch.core.module import (
     ones,
     zeros,
 )
-from building_detection_tpu_torch.parallel.collectives import global_moments
+from building_detection_tpu_torch.parallel.collectives import copy_to_model, gather_channels, global_moments
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -176,8 +182,8 @@ def int8_pointwise_conv(layer: KerasLayer, x: torch.Tensor, kernel: torch.Tensor
     b, h, w, c = x.shape
     record, site = layer.int8_amax, layer.jax_name
     seen = x.float().abs().amax() if layer.int8_scale is None or record is not None else None
-    if record is not None:
-        record[site] = torch.maximum(record[site], seen) if site in record else seen
+    if record is not None:  # under TP the shards see one input, maybe on other devices
+        record[site] = torch.maximum(record[site], seen.to(record[site].device)) if site in record else seen
     if layer.int8_scale is None:
         sx = seen
     else:
@@ -191,8 +197,62 @@ def int8_pointwise_conv(layer: KerasLayer, x: torch.Tensor, kernel: torch.Tensor
     return (acc.to(x.dtype) * (sx * sw).to(x.dtype)).reshape(b, h, w, -1)
 
 
+# -- channel tensor parallelism (the runtimes of parallel/tp.py's plans) -----------
+Params = Dict[str, Optional[torch.Tensor]]
+GroupOp = Callable[[torch.Tensor, Params], torch.Tensor]
+
+
+class ProcessShards:
+    """One sharded parameter group of a layer over the ranks of a model
+    group: the layer holds this rank's channel slice of each tensor of the
+    group, and ``op`` runs as ``gather_channels(op(copy_to_model(x),
+    W_r))``.  A group whose channels are the input's (BatchNorm, the
+    depthwise step) takes this rank's slice of the input."""
+
+    def __init__(self, group, index: int, size: int):
+        self.group, self.index, self.size = group, index, size
+
+    def __call__(self, op: GroupOp, x: torch.Tensor, own: Params, slices_input: bool) -> torch.Tensor:
+        x = copy_to_model(x, self.group)
+        if slices_input:
+            k = x.shape[-1] // self.size
+            x = x[..., self.index * k : (self.index + 1) * k]
+        return gather_channels(op(x, own), self.group)
+
+
+class DeviceShards:
+    """One sharded parameter group of a layer over the model devices of a
+    mesh row in one process: shard ``j``'s tensors live on ``shards[j][0]``;
+    ``x`` goes to each of those devices, ``op`` runs there with the shard's
+    tensors, and the results come back to ``home`` and are concatenated in
+    model order (the single-controller form of GSPMD's channel sharding)."""
+
+    def __init__(self, home: torch.device, shards: Sequence[Tuple[torch.device, Params]]):
+        self.home, self.shards = home, list(shards)
+
+    def __call__(self, op: GroupOp, x: torch.Tensor, own: Params, slices_input: bool) -> torch.Tensor:
+        k = x.shape[-1] // len(self.shards)
+        outs = []
+        for j, (device, params) in enumerate(self.shards):
+            part = x[..., j * k : (j + 1) * k] if slices_input else x
+            outs.append(op(part.to(device, non_blocking=True), params).to(self.home, non_blocking=True))
+        return torch.cat(outs, dim=-1)
+
+
+def sharded(layer: KerasLayer, first: str, op: GroupOp, x: torch.Tensor) -> torch.Tensor:
+    """``op(x, params)`` for the parameter group of ``layer`` named by its
+    first leaf ``first`` (``layer.TP_GROUPS``): on the layer's own tensors,
+    or through the group's TP plan when ``parallel/tp.py`` installed one."""
+    leaves, slices_input = layer.TP_GROUPS[first]
+    own = {leaf: getattr(layer, leaf) for leaf in leaves}
+    plan = layer.tp.get(first) if layer.tp else None
+    return op(x, own) if plan is None else plan(op, x, own, slices_input)
+
+
 class Conv2d(KerasLayer):
     """``keras.layers.Conv2D`` (JAX kernel HWIO, stored OIHW)."""
+
+    TP_GROUPS = {"kernel": (("kernel", "bias"), False)}
 
     def __init__(
         self,
@@ -219,20 +279,27 @@ class Conv2d(KerasLayer):
             self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.cast(self.kernel)
+        return _activate(sharded(self, "kernel", self._conv, x), self.activation)
+
+    def _conv(self, x: torch.Tensor, p: Params) -> torch.Tensor:
+        w, bias = self.cast(p["kernel"]), self.cast(p["bias"])
         x = x.to(w.dtype)
         if _use_int8(self, x.shape[-1], w.shape[2:], self.strides, self.dilation):
             y = int8_pointwise_conv(self, x, w)
-            if self.bias is not None:
-                y = y + self.cast(self.bias)
-        else:
-            y = _conv_nhwc(x, w, self.cast(self.bias), self.strides, self.padding, self.dilation)
-        return _activate(y, self.activation)
+            return y if bias is None else y + bias
+        return _conv_nhwc(x, w, bias, self.strides, self.padding, self.dilation)
 
 
 class SeparableConv2d(KerasLayer):
     """``keras.layers.SeparableConv2D``: depthwise (multiplier 1), then a
-    pointwise 1x1 projection."""
+    pointwise 1x1 projection.  Under TP the two steps shard apart: the
+    depthwise kernel over its (input) channels, the pointwise one and the
+    bias over the out-channels."""
+
+    TP_GROUPS = {
+        "depthwise_kernel": (("depthwise_kernel",), True),
+        "pointwise_kernel": (("pointwise_kernel", "bias"), False),
+    }
 
     def __init__(
         self,
@@ -259,20 +326,20 @@ class SeparableConv2d(KerasLayer):
             self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dw = self.cast(self.depthwise_kernel)
-        y = _conv_nhwc(
-            x.to(dw.dtype), dw, None, self.strides, self.padding,
-            self.dilation, groups=x.shape[-1],
-        )
-        pw = self.cast(self.pointwise_kernel)
-        if _use_int8(self, x.shape[-1], (1, 1), (1, 1), (1, 1)):
+        y = sharded(self, "depthwise_kernel", self._depthwise, x)
+        return _activate(sharded(self, "pointwise_kernel", self._pointwise, y), self.activation)
+
+    def _depthwise(self, x: torch.Tensor, p: Params) -> torch.Tensor:
+        dw = self.cast(p["depthwise_kernel"])
+        return _conv_nhwc(x.to(dw.dtype), dw, None, self.strides, self.padding, self.dilation, groups=x.shape[-1])
+
+    def _pointwise(self, y: torch.Tensor, p: Params) -> torch.Tensor:
+        pw, bias = self.cast(p["pointwise_kernel"]), self.cast(p["bias"])
+        if _use_int8(self, y.shape[-1], (1, 1), (1, 1), (1, 1)):
             # the depthwise step stays in the compute dtype; the projection quantizes
             y = int8_pointwise_conv(self, y, pw)
-            if self.bias is not None:
-                y = y + self.cast(self.bias)
-        else:
-            y = _conv_nhwc(y, pw, self.cast(self.bias), (1, 1), "VALID", (1, 1))
-        return _activate(y, self.activation)
+            return y if bias is None else y + bias
+        return _conv_nhwc(y, pw, bias, (1, 1), "VALID", (1, 1))
 
 
 def _transpose_same_start(kernel: int, stride: int) -> int:
@@ -291,6 +358,8 @@ class Conv2dTranspose(KerasLayer):
     keeps ``n * s`` of them starting at :func:`_transpose_same_start` (0 for
     k=2/s=2 and for k=3/s=2, so k=3 drops its last row and column).
     """
+
+    TP_GROUPS = {"kernel": (("kernel", "bias"), False)}
 
     def __init__(
         self,
@@ -314,19 +383,23 @@ class Conv2dTranspose(KerasLayer):
             self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        kernel = self.cast(self.kernel)
+        return _activate(sharded(self, "kernel", self._conv_transpose, x), self.activation)
+
+    def _conv_transpose(self, x: torch.Tensor, p: Params) -> torch.Tensor:
+        kernel = self.cast(p["kernel"])
         x = x.to(kernel.dtype)
         (sh, sw), (kh, kw) = self.strides, kernel.shape[2:]
         h, w = x.shape[1], x.shape[2]
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), kernel, self.cast(self.bias), (sh, sw))
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), kernel, self.cast(p["bias"]), (sh, sw))
         top, left = _transpose_same_start(kh, sh), _transpose_same_start(kw, sw)
-        y = y[:, :, top : top + h * sh, left : left + w * sw]
-        return _activate(y.permute(0, 2, 3, 1), self.activation)
+        return y[:, :, top : top + h * sh, left : left + w * sw].permute(0, 2, 3, 1)
 
 
 class Dense(KerasLayer):
     """``keras.layers.Dense`` over the last axis (JAX kernel ``(in, out)``,
     stored ``(out, in)``)."""
+
+    TP_GROUPS = {"kernel": (("kernel", "bias"), False)}
 
     def __init__(
         self,
@@ -347,8 +420,11 @@ class Dense(KerasLayer):
             self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.cast(self.kernel)
-        return _activate(F.linear(x.to(w.dtype), w, self.cast(self.bias)), self.activation)
+        return _activate(sharded(self, "kernel", self._dense, x), self.activation)
+
+    def _dense(self, x: torch.Tensor, p: Params) -> torch.Tensor:
+        w = self.cast(p["kernel"])
+        return F.linear(x.to(w.dtype), w, self.cast(p["bias"]))
 
 
 class BatchNorm(KerasLayer):
@@ -367,9 +443,11 @@ class BatchNorm(KerasLayer):
     Under a data group (:func:`core.module.set_data_group`) the mean and
     variance are the global batch's, all-reduced across the ranks
     (:func:`parallel.collectives.global_moments`), and ``n`` of the Bessel
-    factor is the global count.
+    factor is the global count.  Under TP each shard normalises its slice
+    of the channels with its slice of the statistics.
     """
 
+    TP_GROUPS = {"gamma": (("gamma", "beta", "moving_mean", "moving_variance"), True)}
     update_moving = True
 
     def __init__(
@@ -388,7 +466,10 @@ class BatchNorm(KerasLayer):
         self.add_state("moving_variance", (ch,), ones)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gamma = self.cast(self.gamma)
+        return sharded(self, "gamma", self._normalize, x)
+
+    def _normalize(self, x: torch.Tensor, p: Params) -> torch.Tensor:
+        gamma, moving_mean, moving_variance = self.cast(p["gamma"]), p["moving_mean"], p["moving_variance"]
         x = x.to(gamma.dtype)
         if self.training:
             axes = tuple(range(x.dim() - 1))
@@ -401,12 +482,12 @@ class BatchNorm(KerasLayer):
             if self.update_moving:
                 with torch.no_grad():
                     m = self.momentum
-                    self.moving_mean.copy_(self.moving_mean * m + mean * (1.0 - m))
-                    self.moving_variance.copy_(self.moving_variance * m + (var * bessel) * (1.0 - m))
+                    moving_mean.copy_(moving_mean * m + mean * (1.0 - m))
+                    moving_variance.copy_(moving_variance * m + (var * bessel) * (1.0 - m))
         else:
-            mean, var = self.moving_mean, self.moving_variance
+            mean, var = moving_mean, moving_variance
         inv = torch.rsqrt(var + self.epsilon).to(x.dtype) * gamma
-        return (x - mean.to(x.dtype)) * inv + self.cast(self.beta)
+        return (x - mean.to(x.dtype)) * inv + self.cast(p["beta"])
 
 
 def max_pool(

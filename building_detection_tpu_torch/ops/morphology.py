@@ -7,10 +7,11 @@ so the image border never erodes inward.  Arrays are ``(..., H, W)`` floats.
 
 :func:`edge_weight_maps` is the training target's edge band; on a CUDA
 tensor it runs the hand-written kernel of
-:mod:`building_detection_tpu_torch.kernels.edge_weights`.  ``fill_holes``
-and ``majority_vote`` are still to port (``ROADMAP.md`` queue 1, item 4);
-the serving path's fusion runs the host code in
-``building_detection_tpu_torch.post``.
+:mod:`building_detection_tpu_torch.kernels.edge_weights`.
+:func:`majority_vote` and :func:`fill_holes` are the device forms of the
+ensemble vote and the hole filling, off the serving path (its fusion runs
+the host code in ``building_detection_tpu_torch.post``), as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -74,3 +75,45 @@ def edge_weight_maps(
     flat = label.reshape(-1, *shape[-2:]).contiguous()
     f_edge, p_edge = K.edge_weight_maps(flat, kernel, iterations, weight)
     return f_edge.reshape(shape), p_edge.reshape(shape)
+
+
+def majority_vote(masks: torch.Tensor, threshold: int = 3) -> torch.Tensor:
+    """Ensemble vote over binary {0,1} masks stacked on axis 0: 255 where
+    at least ``threshold`` of them are set, else 0 (uint8), on the masks'
+    device."""
+    votes = torch.sum(masks.to(torch.int32), dim=0)
+    return torch.where(votes >= threshold, 255, 0).to(torch.uint8)
+
+
+def fill_holes_counted(mask: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """:func:`fill_holes` and the number of grow steps it took (the last of
+    them the one that changed nothing)."""
+    mask = mask.to(torch.uint8)
+    free = 1 - mask  # complement: background and holes (uint8, wrapping as the JAX function's)
+
+    def grow(cur: torch.Tensor) -> torch.Tensor:
+        return torch.minimum(dilate(cur.to(torch.float32), 3).to(torch.uint8), free)
+
+    seed = torch.zeros_like(free)
+    for rows, cols in ((0, slice(None)), (-1, slice(None)), (slice(None), 0), (slice(None), -1)):
+        seed[..., rows, cols] = free[..., rows, cols]
+    cur, steps = grow(seed), 1
+    while True:  # the JAX while_loop: grow until a step changes nothing
+        grown, steps = grow(cur), steps + 1
+        if torch.equal(grown, cur):
+            return 1 - cur, steps
+        cur = grown
+
+
+def fill_holes(mask: torch.Tensor, max_iters: int = 0) -> torch.Tensor:
+    """Fill the interior holes of a binary {0,1} ``(..., H, W)`` mask on its
+    device: the background grown from the border by masked 3x3 dilations
+    (geodesic reconstruction) until a step changes nothing, inverted.  The
+    reference fills the polygons of the external contours
+    (``model_fuse.py:9-25``), which is the same set.
+
+    ``max_iters`` is accepted and not read, as in the JAX function, whose
+    ``while_loop`` runs to convergence whatever it is; the host pipelines
+    use ``post.geometry``."""
+    del max_iters
+    return fill_holes_counted(mask)[0]

@@ -1,11 +1,17 @@
-"""The collectives of a data-parallel train step.
+"""The collectives of a data-parallel or tensor-parallel train step.
 
 They stand where XLA's collectives stood in the JAX package's jitted step:
 :func:`all_reduce_mean` averages the gradients and the loss over the data
 group, and :func:`global_moments` gives train-mode BatchNorm the statistics
-of the global batch through a differentiable all-reduce.  They use only
-``all_reduce``, which Gloo also carries on CUDA tensors.  This module
-imports nothing else of the port, so the layers can use it.
+of the global batch through a differentiable all-reduce.  Under channel
+tensor parallelism a layer whose out-channels are sharded over the model
+group runs ``gather_channels(op(copy_to_model(x), W_r))`` (Megatron's *f*
+and *g*): :func:`copy_to_model` is the identity whose backward sums the
+input's gradient over the model group, :func:`gather_channels` the
+all-gather of the ranks' channel slices whose backward keeps this rank's
+slice.  They use ``all_reduce`` and ``all_gather``, which Gloo also
+carries on CUDA tensors.  This module imports nothing else of the port, so
+the layers can use it.
 
 Numerics: an all-reduce sums in another order than one process summing the
 whole batch, so data-parallel weights agree with a single-process run to
@@ -13,7 +19,7 @@ float noise; all ranks hold the same bits.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -60,3 +66,64 @@ def global_moments(x: torch.Tensor, axes: Tuple[int, ...], group) -> Tuple[torch
     mean = _SumOverRanks.apply(x.sum(dim=axes), group) / n
     var = _SumOverRanks.apply(torch.square(x - mean).sum(dim=axes), group) / n
     return mean, var, n
+
+
+# Collectives of the tensor-parallel layers, counted by kind (``calls``) and
+# by the bytes this rank contributes (``bytes``); a caller resets them.
+tp_counts: Dict[str, int] = {"copy_to_model": 0, "gather_channels": 0, "bytes": 0}
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; backward all-reduces (sums) the gradient over the
+    model group, since each rank's sharded op only sees the part of the
+    input's gradient that flows through its own channels."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.contiguous().clone()
+        tp_counts["copy_to_model"] += 1
+        tp_counts["bytes"] += grad.numel() * grad.element_size()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _GatherChannels(torch.autograd.Function):
+    """All-gather of the ranks' equal channel slices along the last axis, in
+    rank order; backward keeps this rank's slice of the gradient with no
+    reduction.  (``torch.distributed.nn.functional.all_gather`` sums the
+    gradient over the ranks in its backward: downstream of the gather every
+    rank computes the same full gradient, so that sum would scale every
+    sharded gradient by the group's size.)"""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        size, rank = dist.get_world_size(group), dist.get_rank(group)
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(size)]
+        tp_counts["gather_channels"] += 1
+        tp_counts["bytes"] += x.numel() * x.element_size()
+        dist.all_gather(parts, x, group=group)
+        ctx.lo, ctx.hi = rank * x.shape[-1], (rank + 1) * x.shape[-1]
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad[..., ctx.lo : ctx.hi].contiguous(), None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as the input of a sharded op (Megatron's *f*): the identity,
+    whose gradient is summed over ``group`` in the backward."""
+    return _CopyToModel.apply(x, group)
+
+
+def gather_channels(x: torch.Tensor, group) -> torch.Tensor:
+    """The full ``(..., C)`` tensor from every rank's ``(..., C / size)``
+    slice (Megatron's *g*), slices in rank order; the backward hands each
+    rank its slice of the gradient."""
+    return _GatherChannels.apply(x, group)

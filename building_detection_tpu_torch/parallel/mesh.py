@@ -1,4 +1,4 @@
-"""The port's mesh: the devices of a run's data axis.
+"""The port's mesh: the devices of a run's data and model axes.
 
 The counterpart of ``building_detection_tpu/parallel/mesh.py``.  JAX runs one
 controller over many devices: its ``Mesh`` spans every global device and XLA
@@ -7,31 +7,38 @@ inserts the collectives.  torch has two forms of it here:
 * **Training runs one process per device**, over ``torch.distributed``.  A
   :class:`Mesh` is this process's view of the run: the ``data`` and
   ``model`` sizes, its rank and the world size, its device and the process
-  group the data axis reduces over.  An array sharded over ``data`` is, on
-  each rank, only that rank's rows: :func:`data_rows`, :func:`shard_batch`
-  and :func:`shard_staged` stand where ``data_sharded``, ``shard_batch`` and
-  ``staged_sharded`` stand (rank ``r`` of ``d`` holds the ``r``-th of ``d``
-  equal contiguous parts, the rows JAX's sharding gives the ``r``-th device
-  of the data axis), and "replicated" means equal on every rank, which
-  :func:`replicate` checks by one broadcast from rank 0.
+  groups of its two axes.  Rank ``r`` sits at data index ``r // model`` and
+  model index ``r % model``, JAX's ``np.array(devices).reshape(data,
+  model)``: the data group of a rank is the ranks of its model index, its
+  model group the ranks of its data index.  An array sharded over ``data``
+  is, on each rank, only its data index's rows: :func:`data_rows`,
+  :func:`shard_batch` and :func:`shard_staged` stand where
+  ``data_sharded``, ``shard_batch`` and ``staged_sharded`` stand (data index
+  ``i`` of ``d`` holds the ``i``-th of ``d`` equal contiguous parts, the
+  rows JAX's sharding gives the ``i``-th row of the mesh), and "replicated"
+  means equal on every rank of the data axis, which :func:`replicate`
+  checks by one broadcast.  Channel tensor parallelism
+  (``parallel/tp.py``) shards parameters over the model group;
+  :func:`check_tp_replicas` checks the shards equal over the data group and
+  the rest over every rank.
 * **Inference runs one process over several local devices**:
-  ``make_mesh(devices=[d0, d1, ...])`` in a process with no process group
-  (or at world size 1) gives a mesh whose data axis is those devices, in
-  ``Mesh.devices``.  The predictors hold a replica of each member on every
-  distinct device of it (:func:`predictor_devices`) and run each device's
-  contiguous part of a tile batch there, member by member across the
-  devices (``infer.fused_ensemble.shard_forward``).  A list may
-  name a device more than once (``["cpu", "cpu"]``, ``["cuda:0",
-  "cuda:0"]``): each entry is one shard of the tile batch, and the entries
-  of one device share its replica, which is how a machine with one device
+  ``make_mesh(devices=[d0, d1, ...], data, model)`` in a process with no
+  process group (or at world size 1) gives a mesh whose ``data x model``
+  grid is those devices, row-major as in JAX, in ``Mesh.devices``.  The
+  predictors hold a replica of each member on the first device of each
+  data row (:func:`predictor_devices`), run each row's contiguous part of a
+  tile batch there, member by member across the rows
+  (``infer.fused_ensemble.shard_forward``), and under channel tensor
+  parallelism run each sharded layer's channel slices on the row's model
+  devices.  A list may name a device more than once (``["cpu", "cpu"]``,
+  ``["cuda:0", "cuda:0"]``): each entry is one shard, and the entries of
+  one device share its weights, which is how a machine with one device
   runs the split.
 
 Without a process group, or at world size 1, a training mesh has ``data ==
-1`` and no group: nothing in the port then runs a collective, and a train
-step is the single-device step bit for bit.  Several local devices under a
-process group of more than one rank (the hybrid), and ``model > 1``
-(channel tensor parallelism, ``parallel/tp.py`` in the JAX package,
-``ROADMAP.md`` item 16), are not ported.
+model == 1`` and no group: nothing in the port then runs a collective, and
+a train step is the single-device step bit for bit.  Several local devices
+under a process group of more than one rank (the hybrid) are not ported.
 """
 from __future__ import annotations
 
@@ -48,23 +55,19 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
 
-CHANNEL_TP = (
-    "channel tensor parallelism (model > 1, tp=True; parallel/tp.py in the JAX package) is not ported yet: "
-    "ROADMAP.md item 16"
-)
-
-
 @dataclass(frozen=True)
 class Mesh:
-    """A run's data axis, as this process sees it.
+    """A run's data and model axes, as this process sees it.
 
     ``device`` is the device the mesh pins (``None``: the trainer's or the
     predictor's ``device`` argument decides); ``group`` is the process group
-    of the data axis, ``None`` at ``data == 1`` and on a mesh of local
-    devices; ``backend`` is the process group's backend, ``None`` without
-    one.  ``devices`` are this process's devices of the data axis, the
-    first of them ``device``: one entry for a training process, one entry
-    per shard on a mesh of local devices (:func:`make_mesh`).
+    of this rank's data axis, ``None`` at ``data == 1`` and on a mesh of
+    local devices, and ``model_group`` that of its model axis, ``None`` at
+    ``model == 1`` and on a mesh of local devices; ``backend`` is the
+    process group's backend, ``None`` without one.  ``devices`` are this
+    process's devices, the first of them ``device``: one entry for a
+    training process, ``data * model`` entries, row-major, on a mesh of
+    local devices (:func:`make_mesh`).
     """
 
     data: int
@@ -75,10 +78,21 @@ class Mesh:
     group: Optional[Any] = None
     backend: Optional[str] = None
     devices: Tuple[Optional[torch.device], ...] = ()
+    model_group: Optional[Any] = None
 
     def __post_init__(self):
         if not self.devices:
             object.__setattr__(self, "devices", (self.device,))
+
+    @property
+    def data_index(self) -> int:
+        """This rank's row of the mesh: the part of a data-sharded array it holds."""
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        """This rank's column of the mesh: the channel slice it holds under TP."""
+        return self.rank % self.model
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -90,7 +104,7 @@ def data_axis_size(world_size: int, data: int = -1, model: int = 1, batch_size: 
     capped at ``gcd(batch_size, processes)`` so the batch always divides it
     (the JAX package's rule, shared by bdt-train and bdt-eval)."""
     if data == -1:
-        data = world_size // model
+        data = max(world_size // model, 1)
         if batch_size is not None:
             data = math.gcd(batch_size, data)
     return data
@@ -141,17 +155,21 @@ def make_mesh(
     """The mesh of this run.
 
     With one device (or ``devices=None``) it spans every process of the run
-    (this one alone without a process group): ``devices`` is this process's
-    device, or ``None`` to leave it to the trainer; under NCCL it is the
-    card :func:`parallel.distributed.init_distributed` selected.
+    (this one alone without a process group), ``data x model`` of them:
+    ``devices`` is this process's device, or ``None`` to leave it to the
+    trainer; under NCCL it is the card
+    :func:`parallel.distributed.init_distributed` selected.  With
+    ``model > 1`` every rank creates the process groups of every row and
+    column in the same order (``torch.distributed.new_group`` is collective).
 
     With several ``devices``, in a process without a process group or at
-    world size 1, the data axis is those local devices (``data=-1`` takes
-    all of them; an explicit ``data`` must equal their number), for the
-    predictors' tile data parallelism.  A device may appear more than once:
-    each entry is one shard."""
-    if model != 1:
-        raise NotImplementedError(CHANNEL_TP)
+    world size 1, the ``data x model`` grid is those local devices, row-major
+    (``data=-1`` takes ``len(devices) // model``; an explicit ``data`` times
+    ``model`` must equal their number), for the predictors' tile data
+    parallelism and channel tensor parallelism.  A device may appear more
+    than once: each entry is one shard."""
+    if model < 1:
+        raise ValueError(f"make_mesh(model={model}): the model axis needs at least one device")
     if dist.is_available() and dist.is_initialized():
         world, rank, backend = dist.get_world_size(), dist.get_rank(), dist.get_backend()
     else:
@@ -164,16 +182,30 @@ def make_mesh(
                 "process group) is not ported: run one process per device for training, or one process over "
                 "its local devices without a process group for inference"
             )
-        if data not in (-1, len(local)):
-            raise ValueError(f"make_mesh(data={data}) over {len(local)} local devices: data must equal their number")
-        return Mesh(len(local), 1, rank, world, local[0], None, backend, local)
+        if data == -1:
+            data = len(local) // model
+        if data * model != len(local):
+            raise ValueError(
+                f"make_mesh(data={data}, model={model}) over {len(local)} local devices: data must equal their "
+                f"number divided by model={model}"
+            )
+        return Mesh(data, model, rank, world, local[0], None, backend, local)
     data = data_axis_size(world, data, model, batch_size)
     check_covers_ranks(world, data, model, batch_size)
     device = local[0]
     if device is None and backend == "nccl":
         device = torch.device("cuda", torch.cuda.current_device())
-    group = dist.group.WORLD if data > 1 else None
-    return Mesh(data, model, rank, world, device, group, backend)
+    data_group = model_group = None
+    if model == 1:
+        data_group = dist.group.WORLD if data > 1 else None
+    elif data == 1:
+        model_group = dist.group.WORLD
+    else:
+        # collective: every rank creates every group, in this order
+        data_groups = [dist.new_group([d * model + m for d in range(data)]) for m in range(model)]
+        model_groups = [dist.new_group([d * model + m for m in range(model)]) for d in range(data)]
+        data_group, model_group = data_groups[rank % model], model_groups[rank // model]
+    return Mesh(data, model, rank, world, device, data_group, backend, model_group=model_group)
 
 
 def _canonical(device: torch.device) -> torch.device:
@@ -188,12 +220,21 @@ def _canonical(device: torch.device) -> torch.device:
 
 def predictor_devices(mesh: Optional[Mesh], device=None) -> Tuple[torch.device, ...]:
     """The devices a predictor runs its tile shards on, the first one its
-    home (the scene canvas, the OR and the fetch): the mesh's data-axis
-    devices, or ``(device,)`` without a mesh.  ``device`` (default: the
-    card) stands for the entries the mesh leaves unnamed; a mesh that names
-    its devices takes no ``device``.  Every device passes
-    :func:`core.device.check_device`: a card that is not there raises here,
-    at set-up."""
+    home (the scene canvas, the OR and the fetch): the first device of each
+    data row of the mesh, or ``(device,)`` without a mesh.  ``device``
+    (default: the card) stands for the entries the mesh leaves unnamed; a
+    mesh that names its devices takes no ``device``.  Every device of the
+    mesh passes :func:`core.device.check_device`: a card that is not there
+    raises here, at set-up."""
+    entries = mesh_devices(mesh, device)
+    step = 1 if mesh is None else mesh.model
+    return entries[::step]
+
+
+def mesh_devices(mesh: Optional[Mesh], device=None) -> Tuple[torch.device, ...]:
+    """Every device of a predictor's mesh, row-major (``data * model``
+    entries; ``(device,)`` without a mesh), checked as
+    :func:`predictor_devices` says."""
     if mesh is None:
         entries: Tuple[Optional[torch.device], ...] = (None,)
     elif not isinstance(mesh, Mesh):
@@ -205,10 +246,13 @@ def predictor_devices(mesh: Optional[Mesh], device=None) -> Tuple[torch.device, 
         raise NotImplementedError(
             f"a predictor runs in one process, and this mesh spans {mesh.world_size}: pass a mesh of local devices"
         )
-    elif mesh.model > 1:
-        raise NotImplementedError(CHANNEL_TP)
     else:
         entries = mesh.devices
+        if len(entries) != mesh.data * mesh.model:
+            raise ValueError(
+                f"a predictor's mesh of data={mesh.data} x model={mesh.model} needs its devices: "
+                "make_mesh(devices=[...], ...)"
+            )
     if device is not None and any(d is not None for d in entries):
         raise ValueError(f"the mesh names its devices {[str(d) for d in entries]}: pass device=None")
     fill = torch.device(device if device is not None else "cuda")
@@ -219,11 +263,12 @@ def predictor_devices(mesh: Optional[Mesh], device=None) -> Tuple[torch.device, 
 
 
 def data_rows(mesh: Mesh, n: int) -> slice:
-    """This rank's rows of an ``n``-row array sharded over the data axis."""
+    """This rank's rows of an ``n``-row array sharded over the data axis:
+    those of its data index."""
     if n % mesh.data:
         raise ValueError(f"a batch of {n} rows does not split over data={mesh.data}")
     k = n // mesh.data
-    return slice(mesh.rank * k, (mesh.rank + 1) * k)
+    return slice(mesh.data_index * k, (mesh.data_index + 1) * k)
 
 
 def shard_batch(batch, mesh: Mesh):
@@ -239,20 +284,34 @@ def shard_staged(x, mesh: Mesh):
     return x[:, data_rows(mesh, x.shape[1])]
 
 
-def replicate(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
-    """Check that ``tensors`` are equal on every rank of the data axis: one
-    broadcast of rank 0's values, and one all-reduce of the verdict, so a
-    rank that differs makes every rank raise.  Nothing runs at
-    ``data == 1``."""
-    if mesh.group is None:
+def _check_equal(tensors: Sequence[torch.Tensor], group, what: str) -> None:
+    """Raise on every rank of ``group`` unless ``tensors`` are equal on all
+    of them: one broadcast of the group's first rank's values, and one
+    all-reduce of the verdict, so a rank that differs makes every rank
+    raise."""
+    if group is None or not tensors:
         return
     mine = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    rank0 = mine.clone()
-    dist.broadcast(rank0, src=0, group=mesh.group)
-    differ = (rank0 != mine).any().to(torch.float32).reshape(1)
-    dist.all_reduce(differ, group=mesh.group)
+    first = mine.clone()
+    dist.broadcast(first, src=dist.get_global_rank(group, 0), group=group)
+    differ = (first != mine).any().to(torch.float32).reshape(1)
+    dist.all_reduce(differ, group=group)
     if float(differ) > 0:
         raise ValueError(
-            f"the replicated tensors differ between ranks ({int(float(differ))} of {mesh.data} ranks differ "
-            "from rank 0): every rank must build the same model from the same seed and weights"
+            f"the {what} tensors differ between ranks ({int(float(differ))} of {dist.get_world_size(group)} ranks "
+            "differ from the first): every rank must build the same model from the same seed and weights"
         )
+
+
+def replicate(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
+    """Check that ``tensors`` are equal on every rank of this rank's data
+    axis.  Nothing runs at ``data == 1``."""
+    _check_equal(tensors, mesh.group, "replicated")
+
+
+def check_tp_replicas(sharded: Sequence[torch.Tensor], replicated: Sequence[torch.Tensor], mesh: Mesh) -> None:
+    """Check the layout of a tensor-parallel model: each rank's ``sharded``
+    tensors (its channel slices) equal on every data rank of its model
+    index, and the ``replicated`` ones equal on every rank of the run."""
+    replicate(sharded, mesh)
+    _check_equal(replicated, dist.group.WORLD if mesh.world_size > 1 else None, "replicated")

@@ -41,9 +41,19 @@ package's ``Trainer(mesh=...)`` does over a mesh's data axis:
 At ``data == 1`` (no process group, or world size 1) no collective runs and
 the step is the single-device step bit for bit.  A mesh of several local
 devices (the predictors' tile data parallelism) is refused with a
-``ValueError``: training runs one process per device.  ``tp`` (channel
-tensor parallelism, ``ROADMAP.md`` item 16) is not ported yet, and refused
-with ``NotImplementedError``.
+``ValueError``: training runs one process per device.
+
+``tp=True`` on a mesh with ``model > 1`` (``make_mesh(data, model)`` over
+``data * model`` processes) trains with channel tensor parallelism, as the
+JAX package's ``Trainer(tp=True)`` does (``parallel/tp.py``): each rank
+holds its model index's slice of every sharded parameter, of its Keras Adam
+moments and of the BatchNorm statistics; the sharded layers gather their
+channels over the model group, BatchNorm takes its statistics over the data
+group, and the gradients, loss and metrics are reduced over the data group.
+:meth:`save` gathers the slices (every rank calls it; the primary writes
+the same ``.npz`` as a plain trainer), and :meth:`restore` and
+:meth:`load_weights` cut a checkpoint into them.  Without a model axis
+``tp`` changes nothing.
 """
 from __future__ import annotations
 
@@ -55,12 +65,14 @@ from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from building_detection_tpu_torch.core.config import AugmentConfig, TrainConfig
 from building_detection_tpu_torch.core.device import check_device
 from building_detection_tpu_torch.core.module import (
     init_layers,
     jax_params,
+    jax_templates,
     jax_variables,
     load_jax_variables,
     set_compute_dtype,
@@ -75,6 +87,7 @@ from building_detection_tpu_torch.ops.morphology import edge_weight_maps
 from building_detection_tpu_torch.parallel import collectives
 from building_detection_tpu_torch.parallel import distributed as pdist
 from building_detection_tpu_torch.parallel import mesh as pmesh
+from building_detection_tpu_torch.parallel import tp as ptp
 from building_detection_tpu_torch.train import checkpoint as ckpt
 from building_detection_tpu_torch.train.losses import LOSSES
 from building_detection_tpu_torch.train.metrics import all_metrics
@@ -156,8 +169,6 @@ class Trainer:
                 f"mesh must be a building_detection_tpu_torch.parallel.mesh.Mesh (from make_mesh), "
                 f"got {type(mesh).__name__}"
             )
-        if tp:
-            raise NotImplementedError(pmesh.CHANNEL_TP)
         if len(mesh.devices) > 1:
             raise ValueError(
                 f"a mesh of {len(mesh.devices)} local devices is for inference: training over several devices runs "
@@ -165,6 +176,7 @@ class Trainer:
                 "torchrun --nproc-per-node N ... --num-processes 0)"
             )
         self.mesh = mesh
+        self.tp = bool(tp) and mesh.model > 1
         self.device = _resolve_device(device, mesh)
         if isinstance(model_name, str):
             self.model_name, model = model_name, build_model(model_name)
@@ -173,7 +185,9 @@ class Trainer:
         init_layers(model, torch.Generator().manual_seed(seed))
         model = set_remat(set_compute_dtype(model.to(self.device), compute_dtype), remat)
         self.model = set_data_group(model, mesh.group)
-        pmesh.replicate(list(self.model.state_dict().values()), mesh)
+        if self.tp:
+            ptp.tp_shard(self.model, mesh)
+        self._check_replicas()
         self.cfg = cfg
         self.steps_per_epoch = steps_per_epoch
         self.compute_dtype = compute_dtype
@@ -190,6 +204,11 @@ class Trainer:
         self.augment_seed = augment_seed
         self.step = 0
         self.history: list = []
+
+    def _check_replicas(self) -> None:
+        """Every rank's weights as the mesh says: a TP slice equal on the
+        data ranks of its model index, the rest equal on every rank."""
+        pmesh.check_tp_replicas(*ptp.tp_tensors(self.model), self.mesh)
 
     # -- the step -------------------------------------------------------------
     def _to_device(self, a) -> torch.Tensor:
@@ -211,7 +230,8 @@ class Trainer:
         cfg = self.cfg
         if self.augment_cfg is not None:
             images_u8, labels_u8 = augment_batch(
-                images_u8, labels_u8, self.augment_seed, step, self.augment_cfg, shard=(self.mesh.rank, self.mesh.data)
+                images_u8, labels_u8, self.augment_seed, step, self.augment_cfg,
+                shard=(self.mesh.data_index, self.mesh.data),
             )
         x = T.normalize(images_u8, dtype=self.compute_dtype)
         y_true = make_targets(labels_u8, cfg, cfg.label_smooth)
@@ -335,8 +355,9 @@ class Trainer:
         agg["epoch_seconds"] = time.time() - t0
         self.history.append(agg)
         log_fn(f"epoch {epoch + 1}/{self.cfg.epochs} " + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
-        if checkpoint_dir and pdist.is_primary():  # one writer: every rank holds the same variables
+        if checkpoint_dir and (self.tp or pdist.is_primary()):  # one writer; under TP every rank gathers
             self.save(os.path.join(checkpoint_dir, f"epoch_{epoch + 1}_weights.npz"))
+        if checkpoint_dir and pdist.is_primary():
             self._write_history(checkpoint_dir)
         return bool(callbacks) and any(cb(self, epoch, agg) for cb in list(callbacks))
 
@@ -380,9 +401,9 @@ class Trainer:
             use_staged = self.should_stage(
                 images_u8, labels_u8, extra_arrays=(val_images, val_labels), from_process_local=from_process_local
             )
-            if self.mesh.group is not None:  # one path for all ranks: staged only where every rank fits it
+            if self.mesh.world_size > 1:  # one path for all ranks: staged only where every rank fits it
                 vote = torch.tensor([float(use_staged)], device=self.device)
-                use_staged = float(collectives.all_reduce_mean([vote], self.mesh.group)[0]) == 1.0
+                use_staged = float(collectives.all_reduce_mean([vote], dist.group.WORLD)[0]) == 1.0
         else:
             use_staged = {"staged": True, "stream": False}[stage]
 
@@ -493,17 +514,29 @@ class Trainer:
 
     # -- checkpoints -------------------------------------------------------------
     def save(self, path: str) -> None:
-        params, state = jax_variables(self.model)
-        ckpt.save_variables(
-            path, params, state, self.optimizer.jax_state(), self.step, metadata={"model": self.model_name}
-        )
+        """Write params, BN state, optimizer state and step as the JAX
+        package's ``.npz``.  Under TP the slices are gathered over the model
+        group first, so every rank must call it; only the primary writes,
+        and every rank returns once the file is there."""
+        if not self.tp:
+            params, state = jax_variables(self.model)
+            ckpt.save_variables(path, params, state, self.optimizer.jax_state(), self.step,
+                                metadata={"model": self.model_name})
+            return
+        params, state, opt = ptp.gather_checkpoint(self.model, self.optimizer, self.mesh)
+        if pdist.is_primary():
+            ckpt.save_variables(path, params, state, opt, self.step, metadata={"model": self.model_name})
+        dist.barrier()
 
     def _place_weights(self, path: str, params, state) -> None:
-        """Load the weights; under a mesh every rank loads them and they are
-        checked equal across the ranks."""
-        ckpt.check_matches_model(path, params, state, *jax_variables(self.model), self.model_name)
+        """Load the weights (under TP, this rank's slices of them); under a
+        mesh every rank loads them and they are checked against the mesh's
+        layout."""
+        ckpt.check_matches_model(path, params, state, *jax_templates(self.model), self.model_name)
+        if self.tp:
+            params, state = ptp.local_variables(self.model, self.mesh, params, state)
         load_jax_variables(self.model, params, state)
-        pmesh.replicate(list(self.model.state_dict().values()), self.mesh)
+        self._check_replicas()
 
     def load_weights(self, path: str) -> None:
         """Weights-only initialisation (transfer learning): params and BN
@@ -512,7 +545,7 @@ class Trainer:
         optimizer, schedule and step stay fresh.  Use :meth:`restore` for an
         exact resume."""
         if path.endswith((".h5", ".hdf5")):
-            params, state, _ = ckpt.import_h5_weights(path, *jax_variables(self.model), strict=True)
+            params, state, _ = ckpt.import_h5_weights(path, *jax_templates(self.model), strict=True)
         else:
             params, state, *_ = ckpt.load_variables(path)
         self._place_weights(path, params, state)
@@ -525,7 +558,7 @@ class Trainer:
         params, state, opt, step, _ = ckpt.load_variables(path)
         self._place_weights(path, params, state)
         if opt:
-            self.optimizer.load_jax_state(opt)
+            self.optimizer.load_jax_state(ptp.local_opt_state(self.model, self.mesh, opt) if self.tp else opt)
         self.step = step
         hist_path = os.path.join(os.path.dirname(path) or ".", "history.json")
         if os.path.exists(hist_path):

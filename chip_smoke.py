@@ -58,7 +58,26 @@ default device (the card):
   same 8 samples, the ranks' params bit-identical, the kernel launched on
   each rank's (4, 512, 512) labels once a step); and ``bdt-train
   --coordinator ... --num-processes 1 --process-id 0`` on the card, whose
-  checkpoint restores.
+  checkpoint restores;
+* channel tensor parallelism (``[tp]``, ``parallel/tp.py``): v3plus, whose
+  728-channel Xception middle flow has the widest sharded convs, through
+  ``TiledPredictor(tp=True)`` on ``cuda:0`` twice (``data=1 x model=2``;
+  on four cards also ``model=4`` and ``data=2 x model=2``) against one
+  device on a 1024x1024 scene, in f32 with TF32 off and deterministic
+  cuDNN (at most 0.01 % of the pixels and 1e-4 of the softmax apart), and
+  in bf16 (tiles/s, peak memory a device, the host's enqueue time); then
+  scse at 512x512, batch 8, through ``Trainer(tp=True)`` over two Gloo ranks
+  sharing the card (``data=1 x model=2``; on four cards also NCCL at ``2 x
+  2`` and ``1 x 4``), each rank a child process: one f32 step against one
+  process (loss rel 2e-4, params rtol 1e-3 / atol 1e-4, and the Adam
+  moments, which carry the gradients that a first step at the warmup lr
+  cannot show in the params, within 1e-3 of each tensor's largest), the checkpoint
+  gathered from the slices, the edge kernel bit-equal to its twin on every
+  rank's labels and launched once a step there, bf16 step time and peak
+  memory a rank, and the collectives a step;
+* ``[morph]``: ``majority_vote`` over five 4096x4096 masks and
+  ``fill_holes`` on a 1024x1024 mask with holes on the card, bit-equal to
+  the CPU, with their times and ``fill_holes``' grow steps.
 
 It imports nothing of JAX and nothing of the JAX package.  Any failed check
 exits non-zero before the result lines.  The second-to-last line is a JSON
@@ -130,6 +149,20 @@ TILE_DP_SCENES = ((1024, 1024), (700, 1300))  # 9 and 8 tiles: 9 divides by no s
 TILE_DP_RATE_SCENES = 24          # 1024^2 scenes timed in bf16: groups of 3, 6, 12 scenes on 1, 2, 4 shards, 27-tile forwards
 TILE_DP_BATCHES = (4, 2, 1)       # per-shard batch_tiles tried for the f32 check, largest first
 EVAL_RESULT = "eval launches "
+ENQUEUE_REPEATS = 7               # one-tile-a-shard sharded_bits calls timed on the host clock, their median
+TP_INFER_MEMBER = "v3plus"        # the [tp] inference member: the 728-channel Xception middle flow, the widest sharded convs
+TP_TRAIN_MEMBER = "scse"          # the [tp] training member, 512x512, batch 8: the fewest bytes gathered a step
+TP_SCENE = 1024                   # 3 x 3 = 9 tiles
+TP_PIXEL_FRAC = 1e-4              # f32 TP vs one device: at most 0.01 % of the pixels differ (cuDNN picks by shape)
+TP_PROB_ATOL = 1e-4               # ... and the softmax by at most this
+TP_RATE_SCENES = 8                # 1024^2 scenes timed in bf16, TP against one device
+TP_STEPS = 3                      # bf16 TP steps a leg: 1 warm-up, then 2 timed
+TP_PARAM_RTOL, TP_PARAM_ATOL = 1e-3, 1e-4  # TP vs one process after one f32 step: the JAX package's TP tolerances
+TP_MOMENT_RTOL, TP_MOMENT_FLOOR = 1e-3, 1e-5  # its Adam moments: of a tensor's largest, plus of the largest of any
+TP_TIMEOUT_S = 600
+TP_RESULT = "tp result "
+MORPH_VOTE = (5, 4096, 4096)      # majority_vote: five 4096^2 masks
+MORPH_FILL = 1024                 # fill_holes: a 1024^2 mask with holes
 
 
 class SmokeFailure(RuntimeError):
@@ -743,25 +776,66 @@ def phase_tile_dp(pipe, here: str, smi: str) -> int:
                        f"{order + order[::-1]} after a warm-up; host clock); pixels differing from one device "
                        f"{json.dumps(diff)} ({smi})")
     widest = piped.ensemble
-    with torch.inference_mode():
-        for per_shard in (1, 27):
-            chunk = (torch.rand((per_shard * k, 512, 512, 3), device=widest.device) * 2 - 1).to(torch.bfloat16)
-            widest.sharded_bits(chunk)
-            sync_all(widest.devices)
-            start = time.perf_counter()
-            bits = widest.sharded_bits(chunk)
-            enqueued = time.perf_counter() - start
-            bits.cpu()
-            done = time.perf_counter() - start
-            say("tile_dp", f"bf16 chunk of {per_shard} tile(s) a shard over {devices} (sharded_bits): the host "
-                           f"returned from enqueuing the five members on every shard after {enqueued * 1e3:.1f} ms, the bits were "
-                           f"back after {done * 1e3:.1f} ms ({smi})")
-    del runs, piped, widest, chunk, bits, masks
+    for per_shard in (1, 27):
+        enqueued, done = host_enqueue_ms(widest, per_shard, ENQUEUE_REPEATS if per_shard == 1 else 1)
+        say("tile_dp", f"bf16 chunk of {per_shard} tile(s) a shard over {devices} (sharded_bits): the host "
+                       f"returned from enqueuing the five members on every shard after {enqueued:.1f} ms, the bits "
+                       f"were back after {done:.1f} ms (median of {ENQUEUE_REPEATS if per_shard == 1 else 1}) ({smi})")
+    del runs, piped, widest, masks
     torch.cuda.empty_cache()
 
     eval_launches = tile_dp_eval(here, smi)
     say("tile_dp", f"phase {time.perf_counter() - t0:.1f} s")
     return eval_launches
+
+
+def host_enqueue_ms(ens, per_shard: int, repeats: int) -> tuple:
+    """``(enqueued, done)`` ms, the medians of ``repeats`` calls of
+    ``ens.sharded_bits`` on ``per_shard`` random bf16 tiles a shard after a
+    warm-up call: the host's return from enqueuing the five members on
+    every shard, and the bits back on the host."""
+    import numpy as np
+    import torch
+
+    chunk = (torch.rand((per_shard * len(ens.devices), 512, 512, 3), device=ens.device) * 2 - 1).to(torch.bfloat16)
+    enqueued, done = [], []
+    with torch.inference_mode():
+        ens.sharded_bits(chunk)
+        for _ in range(repeats):
+            sync_all(ens.devices)
+            start = time.perf_counter()
+            bits = ens.sharded_bits(chunk)
+            enqueued.append(time.perf_counter() - start)
+            bits.cpu()
+            done.append(time.perf_counter() - start)
+    return float(np.median(enqueued)) * 1e3, float(np.median(done)) * 1e3
+
+
+def enqueue_probe() -> int:
+    """``chip_smoke.py --enqueue-probe``: the ``[tile_dp]`` host enqueue of
+    one bf16 tile a shard (``host_enqueue_ms``, median of
+    ``ENQUEUE_REPEATS``) on one device and on ``cuda:0`` twice, for the
+    port found first on ``sys.path`` (the current directory's, so the same
+    measurement runs against another checkout).  Prints one JSON line."""
+    import torch
+
+    from building_detection_tpu_torch.core.config import TilerConfig
+    from building_detection_tpu_torch.infer.fused_ensemble import DEFAULT_BATCH_TILES, FusedEnsemblePredictor
+    from building_detection_tpu_torch.parallel.mesh import make_mesh
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    out = {}
+    for label, mesh in (("one device", None), ("cuda:0 twice", make_mesh(devices=["cuda:0", "cuda:0"]))):
+        ens = FusedEnsemblePredictor(seeded_members(SEED), TilerConfig(), DEFAULT_BATCH_TILES, torch.bfloat16,
+                                     device=None if mesh else "cuda", mesh=mesh)
+        out[label] = host_enqueue_ms(ens, 1, ENQUEUE_REPEATS)
+        del ens
+        torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    port = os.path.dirname(sys.modules["building_detection_tpu_torch"].__file__)
+    print("enqueue probe " + json.dumps({"port": port, "ms": out, "smi": smi}), flush=True)
+    return 0
 
 
 def exact_eval_child(argv) -> int:
@@ -1612,6 +1686,332 @@ def phase_dp(here: str, work: str, smi: str) -> tuple:
     return kinds["mesh"] + sum(g["launches"] for g in gloo), kinds["plain"]
 
 
+def phase_tp_infer(smi: str) -> None:
+    """Channel TP in inference: ``TiledPredictor(tp=True)`` over ``cuda:0``
+    twice (``data=1 x model=2``), and on four cards also ``model=4`` and
+    ``data=2 x model=2``, against the one-device predictor at the same
+    ``batch_tiles``: f32 (TF32 off, deterministic cuDNN) differing pixels
+    and softmax difference, gated; bf16 tiles/s and peak memory a device,
+    and the host's enqueue time of one forward."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu_torch.core.config import TilerConfig
+    from building_detection_tpu_torch.infer.engine import TiledPredictor
+    from building_detection_tpu_torch.infer.fused_ensemble import DEFAULT_BATCH_TILES
+    from building_detection_tpu_torch.models.registry import init_model
+    from building_detection_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    meshes = {"cuda:0 twice, data=1 x model=2": make_mesh(devices=["cuda:0", "cuda:0"], data=1, model=2)}
+    if len(cards) >= 4:
+        meshes["cuda:0..3, data=1 x model=4"] = make_mesh(devices=cards[:4], data=1, model=4)
+        meshes["cuda:0..3, data=2 x model=2"] = make_mesh(devices=cards[:4], data=2, model=2)
+    base = init_model(TP_INFER_MEMBER, torch.Generator().manual_seed(SEED + 50))
+    rng = np.random.RandomState(SEED + 50)
+    scene = rng.randint(0, 256, (TP_SCENE, TP_SCENE, 3)).astype(np.uint8)
+    cfg, b = TilerConfig(), DEFAULT_BATCH_TILES
+
+    def predictor(dtype, mesh=None):
+        if mesh is None:
+            return TiledPredictor(copy.deepcopy(base), cfg, b, dtype)
+        return TiledPredictor(copy.deepcopy(base), cfg, b // mesh.data, dtype, mesh=mesh, tp=True)
+
+    saved = exact_f32()
+    try:
+        single = predictor(torch.float32)
+        want = single.predict_mask(scene)
+        tiles = torch.rand((9, 512, 512, 3), device="cuda", generator=torch.Generator("cuda").manual_seed(SEED)) * 2 - 1
+        with torch.inference_mode():
+            p_want = single.model(tiles)
+        for label, mesh in meshes.items():
+            tp = predictor(torch.float32, mesh)
+            check(tp.tp and tp.batch_tiles == b, f"TiledPredictor(tp=True) on {label}: tp={tp.tp}, {tp.batch_tiles} tiles")
+            got = tp.predict_mask(scene)
+            with torch.inference_mode():
+                p_err = float((tp.replicas[tp.device](tiles) - p_want).abs().max())
+            diff = int((got != want).sum())
+            sharded = sum(1 for m in tp.replicas[tp.device].modules() for _ in (getattr(m, "tp", None) or {}))
+            say("tp", f"{TP_INFER_MEMBER} f32, TF32 off, deterministic cuDNN, TiledPredictor(tp=True) on {label} "
+                      f"({sharded} sharded parameter groups) against one device at batch_tiles={b}: {diff} of "
+                      f"{got.size} pixels of a {TP_SCENE}x{TP_SCENE} scene differ (gate {TP_PIXEL_FRAC * got.size:.0f}); "
+                      f"softmax of 9 tiles within {p_err:.3e} (gate {TP_PROB_ATOL}) ({smi})")
+            check(diff <= TP_PIXEL_FRAC * got.size, f"f32 TP on {label}: {diff} pixels differ from one device")
+            check(p_err <= TP_PROB_ATOL, f"f32 TP on {label}: softmax differs by {p_err}")
+            del tp
+        del single, tiles, p_want
+    finally:
+        restore_backends(saved)
+    torch.cuda.empty_cache()
+
+    runs = {"one device": predictor(torch.bfloat16)}
+    runs.update({label: predictor(torch.bfloat16, mesh) for label, mesh in meshes.items()})
+    devices = {"one device": ["cuda:0"], **{label: list(dict.fromkeys(map(str, m.devices))) for label, m in meshes.items()}}
+    scenes_bf16 = [rng.randint(0, 256, (TP_SCENE, TP_SCENE, 3)).astype(np.uint8) for _ in range(TP_RATE_SCENES)]
+    order, masks, rates = list(runs), {}, {}
+    for label in order:
+        runs[label].predict_mask(scenes_bf16[0])  # warm-up
+    for label in order + order[::-1]:
+        pred = runs[label]
+        sync_all(devices[label])
+        for d in devices[label]:
+            torch.cuda.reset_peak_memory_stats(d)
+        start = time.perf_counter()
+        out = [pred.predict_mask(img) for img in scenes_bf16]
+        secs = time.perf_counter() - start
+        masks.setdefault(label, out)
+        peaks = {d: round(torch.cuda.max_memory_allocated(d) / 2**30, 3) for d in devices[label]}
+        rates.setdefault(label, []).append(f"{9 * TP_RATE_SCENES / secs:.2f} tiles/s, peak {json.dumps(peaks)} GiB")
+    with torch.inference_mode():
+        x = (torch.rand((9, 512, 512, 3), device="cuda") * 2 - 1).to(torch.bfloat16)
+        for label in order:
+            pred = runs[label]
+            forward = pred.replicas[pred.device]
+            forward(x)
+            sync_all(devices[label])
+            start = time.perf_counter()
+            forward(x)
+            enqueued = time.perf_counter() - start
+            sync_all(devices[label])
+            done = time.perf_counter() - start
+            diff = sum(int((a != w).sum()) for a, w in zip(masks[label], masks["one device"]))
+            say("tp", f"{TP_INFER_MEMBER} bf16 {label}: {9 * TP_RATE_SCENES} tiles in {TP_RATE_SCENES} "
+                      f"{TP_SCENE}x{TP_SCENE} scenes, batch_tiles={b}: {'; '.join(rates[label])} (in turns "
+                      f"{order + order[::-1]} after a warm-up; host clock); pixels differing from one device {diff}; "
+                      f"one 9-tile forward enqueued in {enqueued * 1e3:.1f} ms, done after {done * 1e3:.1f} ms ({smi})")
+    del runs, masks, base, x
+    torch.cuda.empty_cache()
+    say("tp", f"inference legs {time.perf_counter() - t0:.1f} s")
+
+
+def tp_child(spec: dict) -> int:
+    """One rank of a ``[tp]`` training leg (``chip_smoke.py --tp-child
+    SPEC``): ``spec`` names the backend, ``data``, ``model``, the rank, the
+    port and the output directory.  One f32 step (TF32 off) of
+    ``Trainer(TP_TRAIN_MEMBER, tp=True)`` saved to ``step1.npz``, the edge
+    kernel held bit-equal to its twin on this rank's labels, then bf16 steps
+    timed.  Prints one ``tp result`` JSON line."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu_torch.core.config import TrainConfig
+    from building_detection_tpu_torch.kernels import edge_weights as K
+    from building_detection_tpu_torch.parallel import collectives
+    from building_detection_tpu_torch.parallel import distributed as pdist
+    from building_detection_tpu_torch.parallel.mesh import data_rows, make_mesh
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    cfg = TrainConfig()  # the first step at the warmup lr 1e-5, as the JAX package's TP test steps
+    imgs, labs = train_batch(SEED + 15, cfg.batch_size, cfg.image_size)
+    world = spec["data"] * spec["model"]
+    pdist.init_distributed(f"127.0.0.1:{spec['port']}", world, spec["rank"], backend=spec["backend"])
+    launch = K.edge_weight_maps
+    try:
+        mesh = make_mesh(data=spec["data"], model=spec["model"])
+        out = {"rank": mesh.rank, "data_index": mesh.data_index, "model_index": mesh.model_index}
+        saved = exact_f32()
+        try:
+            tr = Trainer(TP_TRAIN_MEMBER, cfg, seed=SEED, mesh=mesh, tp=True)
+            out["device"] = str(tr.device)
+            launch.launches = 0
+            for k in collectives.tp_counts:
+                collectives.tp_counts[k] = 0
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out["loss"] = tr.train_on_batch(imgs, labs)["loss"]  # fetching the metrics waits for the step
+            out["f32_ms"] = (time.perf_counter() - start) * 1e3
+            out["f32_launches"], out["counts"] = launch.launches, dict(collectives.tp_counts)
+            tr.save(os.path.join(spec["out"], "step1.npz"))
+            tr._check_replicas()
+            del tr
+        finally:
+            restore_backends(saved)
+        rows = labs[data_rows(mesh, len(labs))]
+        label = torch.from_numpy(rows).cuda().float() / 255.0
+        got, want = K.edge_weight_maps(label), K.edge_weight_maps_plain(label)
+        out["edge_equal"] = all(torch.equal(g, w) for g, w in zip(got, want))
+        out["edge_shape"] = list(label.shape)
+        torch.cuda.empty_cache()
+        tr = Trainer(TP_TRAIN_MEMBER, cfg, seed=SEED, mesh=mesh, tp=True, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, times = launch.launches, []
+        for _ in range(TP_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            tr.train_on_batch(imgs, labs)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out.update(bf16_ms=times, bf16_launches=launch.launches - before,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    finally:
+        pdist.destroy()
+    print(TP_RESULT + json.dumps(out), flush=True)
+    return 0
+
+
+def moment_error(opt, want_opt) -> tuple:
+    """How far the Keras Adam moments after one step (``mu = 0.1 g``, ``nu =
+    0.001 g**2``: the gradients, which the params after one step at the
+    warmup lr cannot show) are from ``want_opt``, each of ``mu`` and ``nu``
+    apart: ``(largest over tensors of max |d| / the tensor's largest
+    moment, the same with TP_MOMENT_FLOOR * the largest moment of any
+    tensor taken off |d| first)``.  The gate holds the second."""
+    import numpy as np
+
+    raw, past = 0.0, float("-inf")
+    for attr in ("mu", "nu"):
+        keys = [k for k in want_opt if k.startswith(f".{attr}[")]
+        floor = TP_MOMENT_FLOOR * max(float(np.abs(want_opt[k]).max()) for k in keys)
+        for k in keys:
+            d, top = float(np.abs(opt[k] - want_opt[k]).max()), max(float(np.abs(want_opt[k]).max()), 1e-30)
+            raw, past = max(raw, d / top), max(past, (d - floor) / top)
+    return raw, past
+
+
+def phase_tp_train(here: str, work: str, smi: str) -> tuple:
+    """Channel TP in training: ``Trainer(tp=True)`` over two Gloo ranks on
+    ``cuda:0`` (``data=1 x model=2``), and on four cards over NCCL at
+    ``data=2 x model=2`` and ``data=1 x model=4``, each rank a child
+    process; one f32 step against one process (loss rel ``DP_LOSS_RTOL``,
+    params ``TP_PARAM_RTOL``/``TP_PARAM_ATOL``, Adam moments
+    ``TP_MOMENT_RTOL``), bf16 step time and peak
+    memory a rank.  Returns the edge-kernel launches of the TP steps and of
+    the one-process comparison step."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu_torch.core.config import TrainConfig
+    from building_detection_tpu_torch.core.module import jax_variables
+    from building_detection_tpu_torch.kernels import edge_weights as K
+    from building_detection_tpu_torch.parallel import dryrun
+    from building_detection_tpu_torch.train.checkpoint import load_variables
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    me, env = os.path.abspath(__file__), port_env(here)
+    legs = [("gloo", 1, 2)]
+    if torch.cuda.device_count() >= 4:
+        legs += [("nccl", 2, 2), ("nccl", 1, 4)]
+    results = {}
+    for backend, data, model in legs:
+        out = os.path.join(work, f"{backend}_{data}x{model}")
+        os.makedirs(out)
+        port = dryrun.free_port()
+        argvs = [[sys.executable, me, "--tp-child", json.dumps({"backend": backend, "data": data, "model": model,
+                                                              "rank": r, "port": port, "out": out})]
+                 for r in range(data * model)]
+        runs = dryrun.run_processes(argvs, env, TP_TIMEOUT_S, cwd=here)
+        ranks = []
+        for i, (rc, text) in enumerate(runs):
+            check(rc == 0, f"[tp] {backend} {data}x{model}: rank {i} exited {rc}: {text[-4000:]}")
+            ranks.append(json.loads(next(ln for ln in text.splitlines() if ln.startswith(TP_RESULT))[len(TP_RESULT):]))
+        results[backend, data, model] = (ranks, out)
+
+    cfg = TrainConfig()
+    imgs, labs = train_batch(SEED + 15, cfg.batch_size, cfg.image_size)
+    saved = exact_f32()
+    try:
+        before = K.edge_weight_maps.launches
+        single = Trainer(TP_TRAIN_MEMBER, cfg, seed=SEED)
+        want = single.train_on_batch(imgs, labs)["loss"]
+        want_params, want_state = jax_variables(single.model)
+        want_opt = single.optimizer.jax_state()
+        plain_launches = K.edge_weight_maps.launches - before
+        del single
+    finally:
+        restore_backends(saved)
+        torch.cuda.empty_cache()
+    tp_launches = 0
+    for (backend, data, model), (ranks, out) in results.items():
+        label = f"{backend} data={data} x model={model}"
+        params, state, opt, step, _ = load_variables(os.path.join(out, "step1.npz"))
+        check(step == 1 and sorted(params) == sorted(want_params) and sorted(state) == sorted(want_state)
+              and sorted(opt) == sorted(want_opt), f"[tp] {label}: the checkpoint holds other keys or step {step}")
+        moment_raw, moment_err = moment_error(opt, want_opt)
+        worst = max(float(np.max(np.abs(params[k] - w) - TP_PARAM_RTOL * np.abs(w))) for k, w in want_params.items())
+        worst_state = max((float(np.max(np.abs(state[k] - w) - TRAIN_STATE_RTOL * np.abs(w)))
+                           for k, w in want_state.items()), default=0.0)  # scse has no BatchNorm
+        losses = [r["loss"] for r in ranks]
+        rel = abs(losses[0] - want) / abs(want)
+        counts = ranks[0]["counts"]
+        step_ms = " / ".join(f"{r['f32_ms']:.1f}" for r in ranks)
+        say("tp", f"{TP_TRAIN_MEMBER} 512x512 batch 8 Trainer(tp=True), {label}, ranks on "
+                  f"{[r['device'] for r in ranks]}, f32, TF32 off, one step: loss {losses[0]!r} (all ranks "
+                  f"{'equal' if len(set(losses)) == 1 else losses}), one process {want!r}, rel |d| {rel:.2e} (rtol "
+                  f"{DP_LOSS_RTOL}); params after the step: max(|d| - {TP_PARAM_RTOL} |p|) = {worst:.2e} (atol "
+                  f"{TP_PARAM_ATOL}); Adam moments (the gradients) max over tensors of max |d| / max |m| = "
+                  f"{moment_raw:.2e}, of (max |d| - {TP_MOMENT_FLOOR} max |m| of any) / max |m| = {moment_err:.2e} "
+                  f"(rtol {TP_MOMENT_RTOL}); BN moving statistics "
+                  f"max(|d| - {TRAIN_STATE_RTOL} |s|) = {worst_state:.2e} "
+                  f"(atol {TRAIN_STATE_ATOL}); the step took {step_ms} ms on the ranks (host clock, a first step); "
+                  f"collectives a step on rank 0: {counts['gather_channels']} channel gathers, "
+                  f"{counts['copy_to_model']} gradient all-reduces over the model group, "
+                  f"{counts['bytes'] / 1e9:.3f} GB sent ({smi})")
+        check(len(set(losses)) == 1, f"[tp] {label}: the ranks' losses differ: {losses}")
+        check(rel <= DP_LOSS_RTOL, f"[tp] {label}: loss differs from one process by rel {rel}")
+        check(worst <= TP_PARAM_ATOL, f"[tp] {label}: params differ from one process by {worst} past rtol")
+        check(moment_err <= TP_MOMENT_RTOL, f"[tp] {label}: the Adam moments differ from one process by {moment_err}")
+        check(worst_state <= TRAIN_STATE_ATOL, f"[tp] {label}: BN state differs from one process by {worst_state}")
+        for r in ranks:
+            check(r["edge_equal"], f"[tp] {label} rank {r['rank']}: the edge kernel differs from its twin")
+            check(r["f32_launches"] == 1 and r["bf16_launches"] == TP_STEPS,
+                  f"[tp] {label} rank {r['rank']}: edge-kernel launches {r['f32_launches']} + {r['bf16_launches']}")
+            tp_launches += r["f32_launches"] + r["bf16_launches"]
+        say("tp", f"{TP_TRAIN_MEMBER} bf16 {label}: step " + "; ".join(
+            f"rank {r['rank']} " + " / ".join(f"{ms:.1f}" for ms in r["bf16_ms"]) + f" ms, peak {r['peak_gib']:.2f} GiB"
+            for r in ranks) + f" (CUDA events; the first step warms up); edge kernel bit-equal to its twin on every "
+                              f"rank's {ranks[0]['edge_shape']} labels, launched once a step on each ({smi})")
+    say("tp", f"training legs {time.perf_counter() - t0:.1f} s")
+    return tp_launches, plain_launches
+
+
+def fill_holes_mask(size: int, seed: int):
+    """A {0,1} uint8 mask of filled rectangles, some with holes, and one
+    walled corridor (numpy only)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    m = np.zeros((size, size), np.uint8)
+    for _ in range(60):
+        y, x = rng.randint(0, size - 80, 2)
+        h, w = rng.randint(20, 80, 2)
+        m[y : y + h, x : x + w] = 1
+        if rng.rand() < 0.5:
+            m[y + h // 3 : y + 2 * h // 3, x + w // 3 : x + 2 * w // 3] = 0
+    return m
+
+
+def phase_morph(smi: str) -> None:
+    """``ops/morphology.py::majority_vote`` and ``fill_holes`` on the card,
+    bit-equal to the same functions on the CPU."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu_torch.ops import morphology as morph
+
+    rng = np.random.RandomState(SEED + 60)
+    masks = torch.from_numpy((rng.rand(*MORPH_VOTE) < 0.5).astype(np.uint8))
+    want = morph.majority_vote(masks)
+    dev = masks.cuda()
+    got = morph.majority_vote(dev)
+    check(torch.equal(got.cpu(), want), "majority_vote on the card differs from the CPU")
+    vote_ms = cuda_ms(lambda: morph.majority_vote(dev), 10)
+    mask = torch.from_numpy(fill_holes_mask(MORPH_FILL, SEED + 61))
+    want, steps = morph.fill_holes_counted(mask)
+    dev = mask.cuda()
+    got, steps_dev = morph.fill_holes_counted(dev)
+    check(torch.equal(got.cpu(), want) and steps_dev == steps, "fill_holes on the card differs from the CPU")
+    check(int(want.sum()) > int(mask.sum()), "fill_holes filled nothing")
+    fill_ms = cuda_ms(lambda: morph.fill_holes(dev), 5)
+    say("morph", f"majority_vote over {MORPH_VOTE} uint8 masks: bit-equal to the CPU, {vote_ms:.3f} ms; fill_holes on "
+                 f"a {MORPH_FILL}x{MORPH_FILL} mask with holes: bit-equal to the CPU, {steps} grow steps "
+                 f"({int(want.sum()) - int(mask.sum())} pixels filled), {fill_ms:.2f} ms (CUDA events, median; one "
+                 f"host sync a step) ({smi})")
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -1650,12 +2050,18 @@ def main() -> int:
     phase_train_resume_and_staged()
     with tempfile.TemporaryDirectory(dir=here) as work:
         dp_launches, dp_plain_launches = phase_dp(here, work, smi)
+    phase_tp_infer(smi)
+    with tempfile.TemporaryDirectory(dir=here) as work:
+        tp_launches, tp_plain_launches = phase_tp_train(here, work, smi)
+    phase_morph(smi)
     serving_launches = launches["edge_weight_maps"]
-    launches["edge_weight_maps"] += train_launches + remat_launches + dp_launches + dp_plain_launches + eval_launches
+    launches["edge_weight_maps"] += (train_launches + remat_launches + dp_launches + dp_plain_launches + eval_launches
+                                     + tp_launches + tp_plain_launches)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; edge-kernel launches: serving path "
                 f"{serving_launches}, training path {train_launches}, remat steps {remat_launches}, data-parallel "
                 f"steps {dp_launches}, the [dp] phase's plain comparison steps {dp_plain_launches}, the [tile_dp] "
-                f"phase's bdt-eval processes {eval_launches}; torch._int_mm "
+                f"phase's bdt-eval processes {eval_launches}, tensor-parallel steps {tp_launches}, the [tp] phase's "
+                f"one-process comparison step {tp_plain_launches}; torch._int_mm "
                 f"launches on the int8 path {int_mm_calls}")
     kernels = [{
         "name": "edge_weight_maps",
@@ -1675,6 +2081,12 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-child"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(dp_child(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--tp-child"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(tp_child(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--enqueue-probe"]:
+        sys.path.insert(0, os.getcwd())
+        sys.exit(enqueue_probe())
     if sys.argv[1:2] == ["--exact-eval"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(exact_eval_child(sys.argv[2:]))

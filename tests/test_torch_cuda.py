@@ -3,9 +3,12 @@
 path on the card against the CPU, the fused predictor on a mesh of cards
 (``cuda:0`` twice, and every card) against one card, a full-width
 ``Trainer`` step, which launches the kernel once, ``torch._int_mm`` and the
-int8 predictor against the CPU, a ``remat`` step against a plain one, and a
+int8 predictor against the CPU, a ``remat`` step against a plain one, a
 data-parallel step (NCCL, world size 1, in a child process) against a plain
-one.
+one, ``TiledPredictor(tp=True)`` on ``cuda:0`` twice (and on every card
+when there are more) against one card, a ``Trainer(tp=True)`` step of two
+Gloo ranks sharing the card against one process, and ``majority_vote`` and
+``fill_holes`` on the card against the CPU.
 
 Every test here needs a card (marker ``cuda``) and skips without one.  The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -313,3 +316,79 @@ def test_nccl_world_one_step_equals_plain(cuda):
 
 if __name__ == "__main__" and sys.argv[1:2] == ["nccl-worker"]:
     nccl_world_one_worker(int(sys.argv[2]))
+
+
+@pytest.mark.cuda
+def test_tp_predictor_on_card_matches_one_device(cuda):
+    """Channel TP in f32 with TF32 off and deterministic cuDNN:
+    ``TiledPredictor(tp=True)`` over ``cuda:0`` twice (``model=2``), and over
+    every card when there are more, on ``test_torch_distributed.LayerZoo``
+    (every layer class the rule shards): softmax within 1e-5 of one card,
+    masks equal."""
+    import copy
+
+    from building_detection_tpu_torch.core.module import init_layers
+    from building_detection_tpu_torch.infer.engine import TiledPredictor
+    from building_detection_tpu_torch.parallel.mesh import make_mesh
+    from test_torch_distributed import LayerZoo
+
+    cfg = TilerConfig(tile=32, stride=24, overlap=8)
+    base = init_layers(LayerZoo(), torch.Generator().manual_seed(7))
+    layouts = [["cuda:0", "cuda:0"]]
+    if torch.cuda.device_count() > 1:
+        layouts.append([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    (img,) = scenes(9, [(90, 130)])
+    tiles = torch.rand((5, 32, 32, 3), device=cuda) * 2 - 1
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        False, True, False)
+    try:
+        one = TiledPredictor(copy.deepcopy(base), cfg, 4, torch.float32, cuda)
+        want = one.predict_mask(img)
+        for devices in layouts:
+            tp = TiledPredictor(copy.deepcopy(base), cfg, 4, torch.float32, tp=True,
+                                mesh=make_mesh(devices=devices, data=1, model=len(devices)))
+            assert tp.tp and tp.devices == (torch.device("cuda:0"),)
+            np.testing.assert_array_equal(tp.predict_mask(img), want, err_msg=str(devices))
+            with torch.inference_mode():
+                err = float((tp.replicas[tp.device](tiles) - one.model(tiles)).abs().max())
+            assert err <= 1e-5, (devices, err)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+@pytest.mark.cuda
+def test_morphology_on_card_matches_cpu(cuda):
+    from building_detection_tpu_torch.ops import morphology as morph
+
+    rng = np.random.RandomState(10)
+    masks = torch.from_numpy((rng.rand(5, 300, 400) < 0.5).astype(np.uint8))
+    assert torch.equal(morph.majority_vote(masks.to(cuda)).cpu(), morph.majority_vote(masks))
+    mask = torch.from_numpy((rng.rand(2, 120, 90) < 0.6).astype(np.uint8))
+    got, steps = morph.fill_holes_counted(mask.to(cuda))
+    want, want_steps = morph.fill_holes_counted(mask)
+    assert torch.equal(got.cpu(), want) and steps == want_steps
+
+
+@pytest.mark.cuda
+def test_tp_train_step_of_two_gloo_ranks_on_card_matches_one_process(cuda, tmp_path):
+    """``test_torch_distributed.LayerZoo`` (BatchNorm 4-D and 2-D, every
+    sharded layer class) over two Gloo ranks sharing the card at ``data=1 x
+    model=2``, f32 with TF32 off: one step within loss rel 2e-4 and params
+    rtol 1e-3 / atol 1e-4 and Adam moments within ``MOMENT_RTOL`` of one
+    process on the card; inside the ranks,
+    save/restore and ``remat=True`` bit-equal."""
+    from test_torch_distributed import (LayerZoo, assert_moments_close, assert_step_close, one_process_step, run_tp,
+                                        zoo_weights)
+
+    step, (params, _, opt, n, _) = run_tp(tmp_path, 1, 2, "zoo", *zoo_weights(), device="cuda")
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        False, True, False)
+    try:
+        one, (one_params, _), one_opt = one_process_step(LayerZoo, str(tmp_path / "init.npz"), device="cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    assert n == 1
+    assert_step_close(step, params, one, one_params)
+    assert_moments_close(opt, one_opt)

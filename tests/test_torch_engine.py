@@ -188,16 +188,17 @@ def test_predictor_owns_its_model(variables):
 
 
 def test_multi_device_and_int8_options_are_refused(variables):
-    """Of the multi-device options only channel TP is still refused (item
-    16), and a mesh must be a ``parallel.mesh.Mesh``: a mesh of two devices
-    and ``EnsemblePredictor(devices=...)`` give the one-device masks
-    (``test_torch_tile_parallel.py`` holds them against the JAX package).
+    """No multi-device option is refused any more, and a mesh must be a
+    ``parallel.mesh.Mesh``: ``tp=True`` without a mesh is the plain
+    predictor, as in the JAX package (``test_torch_tp.py`` holds channel TP
+    on meshes), and a mesh of two devices and ``EnsemblePredictor(devices=...)``
+    give the one-device masks (``test_torch_tile_parallel.py`` holds them
+    against the JAX package).
     int8 pointwise convs are ported: the options reach every layer of the
     owned models, and the int8 engine gives the JAX int8 engine's masks on
     the same scales."""
     model = port_model(*variables)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        TiledPredictor(model, CFG, 4, torch.float32, "cpu", tp=True)
+    assert not TiledPredictor(port_model(*variables), CFG, 4, torch.float32, "cpu", tp=True).tp
     with pytest.raises(TypeError, match=r"parallel\.mesh\.Mesh"):
         TiledPredictor(model, CFG, 4, torch.float32, "cpu", mesh=object())
     (img,) = scenes(12, [(70, 90)])

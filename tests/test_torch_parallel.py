@@ -3,8 +3,9 @@
 * ``make_mesh``'s gcd rule at world sizes 1, 2 and 8 and batches 2, 8 and
   12 (the cases of ``tests/test_parallel.py``), its refusals: a rank left
   out of the mesh, a data axis wider than the run or that the batch does
-  not divide, ``model > 1``; several devices in one process make a data
-  axis of them (``test_torch_tile_parallel.py`` holds that mesh);
+  not divide, a model axis in one process; several devices in one process
+  make a data axis of them (``test_torch_tile_parallel.py`` holds that
+  mesh);
 * the row helpers on a rank of a two-rank mesh, and ``local_sample_indices``
   and ``stage_local_dataset`` at world size 1, equal to the JAX package's
   and to ``stage_dataset``;
@@ -64,8 +65,8 @@ def test_mesh_must_cover_every_rank():
         pmesh.check_covers_ranks(2, 4)
     with pytest.raises(ValueError, match="needs 2 processes.*torchrun"):
         pmesh.make_mesh(data=2)  # one process, no group
-    with pytest.raises(NotImplementedError, match="tensor parallelism.*item 16"):
-        pmesh.make_mesh(model=2)
+    with pytest.raises(ValueError, match="model=2 needs 2 processes and the run has 1"):
+        pmesh.make_mesh(model=2)  # a model axis over processes needs them too
     with pytest.raises(ValueError, match="batch of 6 does not split over data=4.*--batch-size"):
         pmesh.check_covers_ranks(4, 4, 1, 6)
     local = pmesh.make_mesh(devices=["cpu", "cpu"])  # several devices in one process: a data axis of them

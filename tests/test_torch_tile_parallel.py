@@ -19,11 +19,11 @@ k = 2 and 8 against the port on one device and the JAX package on
 * ``Pipeline(mesh=)`` built through its constructor, over a scene that
   takes the blocked path and one that does not.
 
-And the refusals: a mesh with a ``model`` axis (``ValueError``, the JAX
-package's words), ``make_mesh(model>1)`` and ``tp=True`` (item 16),
-``Pipeline(fused=False, mesh=)``, ``Trainer`` over a mesh of local devices,
-a mesh under a process group of several ranks, a card index past the cards
-visible.  The tiny members are ``test_torch_cuda.py``'s.
+And the refusals: a mesh with a ``model`` axis on the fused path
+(``ValueError``, the JAX package's words; ``TiledPredictor`` runs one, and
+``test_torch_tp.py`` holds channel TP), ``Pipeline(fused=False, mesh=)``,
+``Trainer`` over a mesh of local devices, a mesh under a process group of
+several ranks, a card index past the cards visible.  The tiny members are ``test_torch_cuda.py``'s.
 """
 import dataclasses
 
@@ -212,17 +212,21 @@ def test_fused_int8_on_mesh_matches_one_device_and_jax():
 
 
 def test_mesh_with_a_model_axis_is_refused_like_jax():
-    mesh = pmesh.Mesh(2, 2, 0, 1, torch.device("cpu"), devices=(torch.device("cpu"),) * 2)
-    with pytest.raises(ValueError, match="data-axis sharding only"):
+    """The fused path refuses a model axis with the JAX package's message
+    (``Pipeline`` before any weight loads); the per-model engine takes one,
+    and ``Trainer(tp=True)`` without one is the plain trainer."""
+    mesh = pmesh.make_mesh(data=2, model=2, devices=["cpu"] * 4)
+    want = r"data-axis sharding only; got a mesh with model axis > 1\. Use a data-only mesh, or per-member " \
+           r"TiledPredictor\(tp=True\) for channel TP\."
+    with pytest.raises(ValueError, match=want):
         FusedEnsemblePredictor(tiny_members(), CFG, 2, torch.float32, mesh=mesh)
-    with pytest.raises(ValueError, match="data-axis sharding only"):
+    with pytest.raises(ValueError, match=want):
         JaxFused(jax_members(), JCFG, 2, jnp.float32, mesh=jax_make_mesh(data=2, model=4))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        TiledPredictor(TinyMember(), CFG, 2, torch.float32, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        pmesh.make_mesh(model=2, devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        Trainer(TorchTiny, tp=True, device="cpu")
+    with pytest.raises(ValueError, match=want):
+        Pipeline(cfg=Config(tiler=CFG), compute_dtype=torch.float32, models=tuple(NAMES[:1]), mesh=mesh)
+    assert TiledPredictor(TinyMember(), CFG, 2, torch.float32, mesh=mesh).devices == (torch.device("cpu"),) * 2
+    assert pmesh.make_mesh(model=2, devices=["cpu", "cpu"]).shape == {"data": 1, "model": 2}
+    assert Trainer(TorchTiny, tp=True, device="cpu").tp is False
 
 
 # -- the per-model engine --------------------------------------------------------------

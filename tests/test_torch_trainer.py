@@ -212,21 +212,21 @@ def test_bf16_compute_keeps_f32_masters():
 def test_unported_options_raise(kw):
     """A mesh that is not a ``parallel.mesh.Mesh`` is refused with a
     ``TypeError`` naming it (data-parallel training is ported:
-    ``test_torch_parallel.py``, ``test_torch_distributed.py``); channel
-    tensor parallelism is still refused; ``remat=True`` is ported and a step
-    with it equals a plain step (``test_torch_remat.py`` holds the five
-    members)."""
+    ``test_torch_parallel.py``, ``test_torch_distributed.py``); ``tp=True``
+    without a model axis is the plain trainer, as in the JAX package
+    (``test_torch_distributed.py`` holds TP over processes); ``remat=True``
+    is ported and a step with it equals a plain step
+    (``test_torch_remat.py`` holds the five members)."""
     if "mesh" in kw:
         with pytest.raises(TypeError, match=r"parallel\.mesh\.Mesh"):
             trainer(**kw)
         return
-    if "tp" in kw:
-        with pytest.raises(NotImplementedError):
-            trainer(**kw)
-        return
     imgs, labs = tiny_data(13)
     tr, plain = trainer(**kw), trainer()
-    assert tr.model.remat is True and plain.model.remat is False
+    if "tp" in kw:
+        assert tr.tp is False and all(m.tp is None for m in tr.model.modules() if hasattr(m, "tp"))
+    else:
+        assert tr.model.remat is True and plain.model.remat is False
     assert tr.train_on_batch(imgs, labs) == plain.train_on_batch(imgs, labs)
     assert_same_model(tr, plain)
 
