@@ -1,8 +1,11 @@
-"""Named wall-clock stages: the port's own ``StageTimer``.
+"""Named wall-clock stages and a device trace: the port's ``utils/profiling.py``.
 
-The counterpart of ``building_detection_tpu/utils/profiling.py::StageTimer``,
-used by the pipeline to attribute time to the ensemble forward, fusion and
-polygons.  The JAX original's ``sync``/``jax_leaf`` are not copied: a stage
+* :class:`StageTimer`, the counterpart of the JAX package's, used by the
+  pipeline to attribute time to the ensemble forward, fusion and polygons;
+* :func:`device_trace`, a context manager around ``torch.profiler`` that
+  writes a trace TensorBoard or ``chrome://tracing`` loads.
+
+The JAX original's ``sync``/``jax_leaf`` are not copied: a stage
 that must include the card's queued work ends in a host fetch or
 ``torch.cuda.synchronize`` inside its body, as the pipeline's
 ``ensemble_forward`` stage does by fetching the masks.
@@ -13,7 +16,7 @@ import contextlib
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, Optional
 
 
 class StageTimer:
@@ -57,3 +60,27 @@ class StageTimer:
     def reset(self) -> None:
         self._acc.clear()
         self._calls.clear()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]):
+    """``with device_trace('/tmp/trace') as prof:`` records the CPU activity,
+    and the CUDA activity where a card is present, with ``torch.profiler``,
+    and on exit writes a ``*.pt.trace.json`` under ``log_dir`` that
+    TensorBoard's profiler plugin and ``chrome://tracing`` load.  ``prof`` is
+    the ``torch.profiler.profile``, whose ``key_averages()`` hold the kernel
+    rows.  A ``None`` or empty ``log_dir`` makes it a no-op that yields
+    ``None``."""
+    if not log_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()  # the trace holds the work enqueued inside it

@@ -78,6 +78,14 @@ default device (the card):
 * ``[morph]``: ``majority_vote`` over five 4096x4096 masks and
   ``fill_holes`` on a 1024x1024 mask with holes on the card, bit-equal to
   the CPU, with their times and ``fill_holes``' grow steps.
+* ``[learn]``: each of the five members learns, by the JAX package's
+  learning-smoke recipe (``train/learn_smoke.py``: synthetic rectangles,
+  300 bf16 steps at 128x128 for res34, scse and hrnet, 150 for v3plus and
+  bam, staged chunks of 50, warmup-cosine from lr 5e-4), to a held-out
+  IoU above 0.5 with the eval-mode model; then three steps of each member
+  at that size are profiled under ``utils/profiling.py::device_trace``:
+  device ops and device milliseconds a step, and the busy share against
+  the unprofiled step's CUDA-event time.
 
 It imports nothing of JAX and nothing of the JAX package.  Any failed check
 exits non-zero before the result lines.  The second-to-last line is a JSON
@@ -97,7 +105,7 @@ import sys
 import time
 
 SEED = 0
-SWEEP = (8, 16, 32, 64)           # batch_tiles values timed on the ensemble forward
+SWEEP = (8, 32, 64)               # batch_tiles values timed on the ensemble forward
 PARITY_ATOL = 1e-3                # f32 card vs CPU, ~100 layers summed in other orders
 EDGE_SHAPE = (8, 512, 512)        # the trainer's label batch
 # (shape, kernel, iterations, weight, storage offset in floats) the kernel is
@@ -105,7 +113,8 @@ EDGE_SHAPE = (8, 512, 512)        # the trainer's label batch
 # odd windows; an even window; W not a multiple of 4; rows wider than one
 # 512-column chunk (aligned, and ragged); a base pointer off 16 bytes; the
 # smallest and largest windows; a strip taller than the image; a rank's
-# half of the trainer's batch under two-way data parallelism.
+# half of the trainer's batch under two-way data parallelism; the [learn]
+# recipe's batch at 128x128.
 EDGE_CHECKS = (
     (EDGE_SHAPE, 3, 5, 2.0, 0),
     ((3, 77, 131), 2, 4, 3.0, 0),
@@ -118,10 +127,11 @@ EDGE_CHECKS = (
     ((2, 70, 600), 3, 16, 2.0, 0),
     ((2, 5, 40), 3, 5, 2.0, 0),
     ((4, 512, 512), 3, 5, 2.0, 0),
+    ((8, 128, 128), 3, 5, 2.0, 0),
 )
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores, same source
-TRAIN_STEPS = 5                   # full-width steps per member and dtype, on one fixed batch
+TRAIN_STEPS = 3                   # full-width steps per member and dtype, on one fixed batch
 TRAIN_PARITY_PX = 64              # the card-vs-CPU train step: 64 px, batch 2
 # Tolerances of that step, card vs CPU, f32 with TF32 off.  The loss is one
 # forward, summed in other orders.  Params: the step runs at the warmup lr
@@ -163,6 +173,8 @@ TP_TIMEOUT_S = 600
 TP_RESULT = "tp result "
 MORPH_VOTE = (5, 4096, 4096)      # majority_vote: five 4096^2 masks
 MORPH_FILL = 1024                 # fill_holes: a 1024^2 mask with holes
+LEARN_WARMUP_STEPS = 2            # [learn] profile: bf16 steps at the recipe's 128^2 before the timed ones
+LEARN_PROFILE_STEPS = 3           # ... steps timed by CUDA events, then as many under device_trace
 
 
 class SmokeFailure(RuntimeError):
@@ -2012,6 +2024,104 @@ def phase_morph(smi: str) -> None:
                  f"host sync a step) ({smi})")
 
 
+def device_rows(prof) -> list:
+    """The device rows of a ``torch.profiler`` run (kernels, copies, sets):
+    ``(name, count, device ms)``, longest first.  One pass over the events:
+    ``key_averages()`` would also total the ~10^5 CPU events of a few train
+    steps, which takes seconds."""
+    from torch.autograd import DeviceType
+
+    rows = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            count, ms = rows.get(e.name, (0, 0.0))
+            rows[e.name] = (count + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return sorted(((k, c, ms) for k, (c, ms) in rows.items()), key=lambda r: -r[2])
+
+
+def learn_profile(name: str, trace_dir: str, smi: str) -> int:
+    """One member at the learn recipe's size: LEARN_WARMUP_STEPS steps, then
+    LEARN_PROFILE_STEPS timed by CUDA events, then as many under
+    ``device_trace``; prints device ops and ms a step and the busy share.
+    Returns the edge-kernel launches."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu_torch.kernels import edge_weights as K
+    from building_detection_tpu_torch.train import learn_smoke as LS
+    from building_detection_tpu_torch.train.trainer import Trainer
+    from building_detection_tpu_torch.utils.profiling import device_trace
+
+    steps, hw, lr = LS.RECIPES[name]
+    tr = Trainer(name, LS.learn_config(hw, lr), steps_per_epoch=steps, compute_dtype=torch.bfloat16)
+    imgs, labs = (torch.from_numpy(a).cuda() for a in LS.make_dataset(np.random.RandomState(SEED + 70), LS.BATCH, hw))
+    before = K.edge_weight_maps.launches
+    for _ in range(LEARN_WARMUP_STEPS):
+        tr.train_on_batch(imgs, labs, fetch_metrics=False)
+    times = []
+    for _ in range(LEARN_PROFILE_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tr.train_on_batch(imgs, labs, fetch_metrics=False)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    with device_trace(trace_dir) as prof:
+        for _ in range(LEARN_PROFILE_STEPS):
+            tr.train_on_batch(imgs, labs, fetch_metrics=False)
+    rows = device_rows(prof)
+    check(bool(rows), f"[learn] {name}: the profiler saw no device time")
+    launched = K.edge_weight_maps.launches - before
+    check(launched == LEARN_WARMUP_STEPS + 2 * LEARN_PROFILE_STEPS, f"[learn] {name}: {launched} edge-kernel launches")
+    ops = sum(r[1] for r in rows) / LEARN_PROFILE_STEPS
+    dev_ms = sum(r[2] for r in rows) / LEARN_PROFILE_STEPS
+    step_ms = statistics.median(times)
+    top = "; ".join(f"{k[:60]} {100 * ms / LEARN_PROFILE_STEPS / dev_ms:.1f} %" for k, _, ms in rows[:3])
+    say("learn", f"{name} profile at {hw}x{hw}, batch {LS.BATCH}, bf16: {ops:.0f} device ops a step (kernels, copies, "
+                 f"sets), {dev_ms:.2f} device ms a step (device_trace over {LEARN_PROFILE_STEPS} steps); step "
+                 f"{step_ms:.2f} ms unprofiled (CUDA events, median of {LEARN_PROFILE_STEPS}), busy "
+                 f"{100 * dev_ms / step_ms:.1f} %; longest: {top} ({smi})")
+    del tr
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_learn(here: str, smi: str) -> int:
+    """Every member learns by the recipe of ``train/learn_smoke.py`` on the
+    card (held-out IoU > 0.5), then the 128^2 profile of each.  Returns the
+    edge-kernel launches: one a step, one a held-out evaluation."""
+    import tempfile
+
+    import torch
+
+    from building_detection_tpu_torch.kernels import edge_weights as K
+    from building_detection_tpu_torch.train import learn_smoke as LS
+
+    t0 = time.perf_counter()
+    launches = 0
+    for name, (steps, hw, lr) in LS.RECIPES.items():
+        before = K.edge_weight_maps.launches
+        r = LS.run_one(name, log=lambda line: say("learn", line.strip()))
+        launched = K.edge_weight_maps.launches - before
+        say("learn", f"{name}: held-out IoU {r['IoU']:.4f} PA {r['PA']:.4f} F1 {r['F1_score']:.4f} (gate IoU > "
+                     f"{LS.IOU_GATE}); last train loss {r['train_loss']:.4f}; {r['steps']} bf16 steps at {hw}x{hw}, "
+                     f"lr {lr}, in {r['seconds']:.1f} s, {r['step_ms']:.2f} ms a step (host clock, chunks after "
+                     f"the first); edge-kernel launches {launched} ({smi})")
+        check(math.isfinite(r["train_loss"]), f"[learn] {name}: non-finite loss")
+        check(r["IoU"] > LS.IOU_GATE, f"[learn] {name} did not learn: held-out IoU {r['IoU']:.4f}")
+        check(launched == steps + 1, f"[learn] {name}: {launched} edge-kernel launches in {steps} steps and one eval")
+        launches += launched
+        torch.cuda.empty_cache()
+    learn_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=here) as trace_dir:
+        for name in LS.RECIPES:
+            launches += learn_profile(name, trace_dir, smi)
+        traces = os.listdir(trace_dir)
+        check(len(traces) == len(LS.RECIPES), f"[learn] device_trace wrote {traces}")
+    say("learn", f"all five learned in {learn_s:.1f} s; profiles {time.perf_counter() - t0 - learn_s:.1f} s")
+    return launches
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2048,6 +2158,7 @@ def main() -> int:
     train_launches = phase_train_full()
     remat_launches = phase_remat()
     phase_train_resume_and_staged()
+    learn_launches = phase_learn(here, smi)
     with tempfile.TemporaryDirectory(dir=here) as work:
         dp_launches, dp_plain_launches = phase_dp(here, work, smi)
     phase_tp_infer(smi)
@@ -2055,10 +2166,11 @@ def main() -> int:
         tp_launches, tp_plain_launches = phase_tp_train(here, work, smi)
     phase_morph(smi)
     serving_launches = launches["edge_weight_maps"]
-    launches["edge_weight_maps"] += (train_launches + remat_launches + dp_launches + dp_plain_launches + eval_launches
-                                     + tp_launches + tp_plain_launches)
+    launches["edge_weight_maps"] += (train_launches + remat_launches + learn_launches + dp_launches
+                                     + dp_plain_launches + eval_launches + tp_launches + tp_plain_launches)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; edge-kernel launches: serving path "
-                f"{serving_launches}, training path {train_launches}, remat steps {remat_launches}, data-parallel "
+                f"{serving_launches}, training path {train_launches}, remat steps {remat_launches}, learning runs and "
+                f"their profiles {learn_launches}, data-parallel "
                 f"steps {dp_launches}, the [dp] phase's plain comparison steps {dp_plain_launches}, the [tile_dp] "
                 f"phase's bdt-eval processes {eval_launches}, tensor-parallel steps {tp_launches}, the [tp] phase's "
                 f"one-process comparison step {tp_plain_launches}; torch._int_mm "

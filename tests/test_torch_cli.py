@@ -327,3 +327,42 @@ def test_fused_predictor_vote_default_is_three_of_five():
     masks = fused.predict_masks(img)
     votes = sum((masks[n] > 0).astype(int) for n in NAMES)
     np.testing.assert_array_equal(fused.predict_vote(img), np.where(votes >= 3, 255, 0).astype(np.uint8))
+
+
+# -- console scripts ----------------------------------------------------------------
+JAX_SCRIPTS = {
+    "bdt-predict": "building_detection_tpu.cli.predict:main",
+    "bdt-train": "building_detection_tpu.cli.train:main",
+    "bdt-eval": "building_detection_tpu.cli.evaluate:main",
+    "bdt-augment": "building_detection_tpu.cli.augment:main",
+    "bdt-serve": "building_detection_tpu.cli.serve:main",
+    "bdt-convert": "building_detection_tpu.cli.convert:main",
+    "bdt-client": "building_detection_tpu.serve.client:main",
+}
+
+
+def project_scripts():
+    import tomllib
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "pyproject.toml"), "rb") as f:
+        return tomllib.load(f)["project"]["scripts"]
+
+
+@pytest.mark.parametrize("jax_name", sorted(JAX_SCRIPTS))
+def test_console_script_resolves_to_the_ports_main(jax_name):
+    """``bdt-torch-X`` names the port's counterpart of ``bdt-X``'s module,
+    and resolves to that module's ``main``."""
+    import importlib
+
+    name = jax_name.replace("bdt-", "bdt-torch-", 1)
+    target = project_scripts()[name]
+    assert target == JAX_SCRIPTS[jax_name].replace("building_detection_tpu.", "building_detection_tpu_torch.", 1)
+    module, attr = target.split(":")
+    main = getattr(importlib.import_module(module), attr)
+    assert callable(main) and main.__module__ == module
+
+
+def test_jax_console_scripts_are_unchanged():
+    scripts = project_scripts()
+    assert {k: v for k, v in scripts.items() if not k.startswith("bdt-torch-")} == JAX_SCRIPTS
+    assert len(scripts) == 2 * len(JAX_SCRIPTS)
