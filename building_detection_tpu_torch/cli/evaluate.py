@@ -8,19 +8,22 @@ The flags are ``building_detection_tpu/cli/evaluate.py``'s, with
 reference's validation steps: the ``len % batch`` tail is not evaluated,
 and ``samples`` says how many were.
 
-Data-parallel evaluation runs one process per device, as ``bdt-train``
-does: the same arguments plus ``--coordinator HOST:PORT --num-processes N
---process-id I`` (or ``--num-processes 0`` under ``torchrun``), NCCL for
-cards and Gloo for ``--device cpu``.  Every process reads the same whole
-batches and evaluates its rows of each; the metrics and the loss are
-reduced over the processes, and process 0 alone prints the line.
+Data-parallel evaluation runs one worker per device, as ``bdt-train``
+does: with no process flags over every visible card (``--local-devices K``
+workers started by ``parallel/launch.py``, capped at ``gcd(batch size,
+K)``), over several processes with the same arguments plus ``--coordinator
+HOST:PORT --num-processes N --process-id I`` (one worker a process, or
+``--local-devices K`` each), or ``--num-processes 0`` under ``torchrun``;
+NCCL for cards and Gloo for ``--device cpu``.  Every worker reads the same
+whole batches and evaluates its rows of each; the metrics and the loss are
+reduced over the workers, and rank 0 alone prints the line.
 """
 from __future__ import annotations
 
 import argparse
 import json
 
-from building_detection_tpu_torch.cli.train import add_process_flags, start_processes
+from building_detection_tpu_torch.cli.train import add_process_flags, run
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,12 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     parser = build_parser()
-    args = parser.parse_args(argv)
-    pdist = start_processes(parser, args, "evaluation")
-    try:
-        return evaluate(args)
-    finally:
-        pdist.destroy()
+    return run(parser, parser.parse_args(argv), evaluate, "evaluation")
 
 
 def evaluate(args) -> int:

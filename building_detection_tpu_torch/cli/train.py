@@ -9,21 +9,32 @@ added.  A dataset that fits the host budget is decoded up front and handed
 to :meth:`Trainer.fit_arrays` (staged on the device when it fits there);
 a larger one streams from disk through :meth:`Trainer.fit`.
 
-Data-parallel training runs one process per device, each with the same
-arguments plus ``--coordinator HOST:PORT --num-processes N --process-id I``
-(or under ``torchrun --nproc-per-node N`` with ``--num-processes 0``).  The
-backend follows ``--device``: NCCL for cards (rank ``i`` on the card of its
-local rank), Gloo for ``--device cpu``.  Each process decodes only its rows
-of every global batch, the gradients and the BatchNorm statistics are
-reduced over all processes, and process 0 alone writes checkpoints and
-history.
+Data-parallel training runs one worker per device.  With no process flags
+``bdt-train`` trains on every visible card, as the JAX package's takes every
+local device: ``--local-devices K`` (default: the cards visible; 1 with
+``--device cpu`` or a numbered card) workers, capped at ``gcd(batch size,
+K)`` under ``--data-parallel -1`` as the JAX package caps its data axis, are
+started by ``parallel/launch.py`` with the same arguments, one a card.  Over
+several processes (machines) each runs the same arguments plus
+``--coordinator HOST:PORT --num-processes N --process-id I``, with one
+worker a process by default (the contract before the launcher), or
+``--local-devices K`` workers each (the hybrid: worker ``k`` of process
+``p`` is rank ``p * K + k``); under ``torchrun --nproc-per-node N`` pass
+``--num-processes 0``.  The backend follows ``--device``: NCCL for cards
+(a worker on the card of its local rank), Gloo for ``--device cpu``.  Each
+worker decodes only its rows of every global batch and says so (``process
+P worker k rank r: feeding N samples``; ``process r: ...`` where a process
+runs one), the gradients and the BatchNorm statistics are reduced over all
+workers, and rank 0 alone writes checkpoints and history.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import glob
 import os
 import re
+import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -81,6 +92,12 @@ def add_process_flags(p: argparse.ArgumentParser, what: str) -> None:
     )
     p.add_argument("--num-processes", type=int)
     p.add_argument("--process-id", type=int)
+    p.add_argument(
+        "--local-devices", type=int,
+        help=f"{what} workers this process starts, one a device, through parallel/launch.py (default: every "
+        "visible card without process flags, capped at gcd(batch size, cards) under --data-parallel -1; 1 with "
+        "--device cpu, a numbered card, or --coordinator/--num-processes/--process-id)",
+    )
 
 
 def newest_checkpoint(checkpoint_dir: str):
@@ -127,20 +144,82 @@ def start_processes(parser: argparse.ArgumentParser, args, what: str):
     return pdist
 
 
+def local_workers(parser: argparse.ArgumentParser, args, what: str) -> int:
+    """The workers this process starts (``--local-devices``, or its
+    default), after the JAX package's cap: with no process flags and
+    ``--data-parallel -1``, ``gcd(batch size, K)``; an explicit
+    ``--data-parallel D`` takes the first ``D`` of the ``K`` devices.  Over
+    several processes every worker starts and the mesh checks the cover."""
+    import torch
+
+    from building_detection_tpu_torch.parallel.mesh import data_axis_size
+
+    multi = args.coordinator is not None or args.num_processes is not None or args.process_id is not None
+    device = torch.device(args.device)
+    if args.local_devices is not None:
+        if args.num_processes == 0:
+            parser.error(
+                f"--local-devices with --num-processes 0: torchrun already started the {what} workers, one a "
+                "device; pass --nproc-per-node to torchrun instead"
+            )
+        if args.local_devices < 1:
+            parser.error(f"--local-devices {args.local_devices}: at least one device")
+        k = args.local_devices
+    elif multi or device.type != "cuda" or device.index is not None:
+        return 1
+    else:
+        k = max(torch.cuda.device_count(), 1)  # no card: one in-process worker, which raises
+    if multi:
+        return k
+    if args.data_parallel > k:
+        parser.error(f"--data-parallel {args.data_parallel} needs {args.data_parallel} devices and this process "
+                     f"has {k} (--local-devices)")
+    return data_axis_size(k, args.data_parallel, 1, args.batch_size)
+
+
+def run(parser: argparse.ArgumentParser, args, body, what: str) -> int:
+    """``body(args)`` in this process, or, where :func:`local_workers` asks
+    for several, on that many workers started by ``parallel/launch.py``
+    (each re-entering ``body`` with ``--num-processes 0`` and rank 0
+    writing); a failed worker makes the run exit 1 with its rank and error."""
+    workers = local_workers(parser, args, what)
+    if workers == 1:
+        pdist = start_processes(parser, args, what)
+        try:
+            return body(args)
+        finally:
+            pdist.destroy()
+
+    import torch
+
+    from building_detection_tpu_torch.parallel import launch
+
+    cuda = torch.device(args.device).type == "cuda"
+    procs, pid = args.num_processes or 1, args.process_id or 0
+    print(f"process {pid}: starting {workers} {what} worker(s), ranks {pid * workers}..{(pid + 1) * workers - 1} "
+          f"of {procs * workers}, {'NCCL, a card each' if cuda else 'Gloo, on the CPU'}"
+          + (f" (--local-devices {args.local_devices})" if args.local_devices else ""), flush=True)
+    inner = copy.copy(args)
+    inner.coordinator, inner.num_processes, inner.process_id, inner.local_devices = None, 0, None, None
+    try:
+        launch.launch(body, inner, local_devices=workers, coordinator=args.coordinator, num_processes=procs,
+                      process_id=pid, backend="nccl" if cuda else "gloo", device_type="cuda" if cuda else "cpu")
+    except launch.WorkerFailed as e:
+        print(f"{what} failed: {e}", file=sys.stderr, flush=True)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     parser = build_parser()
-    args = parser.parse_args(argv)
-    pdist = start_processes(parser, args, "training")
-    try:
-        return train(args)
-    finally:
-        pdist.destroy()
+    return run(parser, parser.parse_args(argv), train, "training")
 
 
 def local_pairs(pairs, batch_size: int, trainer, verb: str):
-    """This process's share of ``pairs`` under a multi-process mesh (its rows
-    of every complete global batch), announced as ``process i: <verb> n
-    samples``; all of ``pairs`` otherwise."""
+    """This rank's share of ``pairs`` under a multi-process mesh (its rows
+    of every complete global batch), announced as ``process P worker k rank
+    r: <verb> n samples`` (``process r: ...`` where a process runs one
+    worker); all of ``pairs`` otherwise."""
     from building_detection_tpu_torch.parallel import distributed as pdist
 
     mesh = trainer.mesh
@@ -152,7 +231,9 @@ def local_pairs(pairs, batch_size: int, trainer, verb: str):
             f"multi-process training needs at least one complete global batch ({batch_size} samples; got "
             f"{len(pairs)}) and every process must own rows of the data axis"
         )
-    print(f"process {mesh.rank}: {verb} {len(idx)} samples", flush=True)
+    who = f"process {mesh.process_index} worker {mesh.local_rank} rank {mesh.rank}" if mesh.local_size > 1 else (
+        f"process {mesh.rank}")
+    print(f"{who}: {verb} {len(idx)} samples", flush=True)
     return [pairs[i] for i in idx]
 
 

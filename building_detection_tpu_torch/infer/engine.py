@@ -43,7 +43,7 @@ from building_detection_tpu_torch.infer.fused_ensemble import (
     upload_pinned,
 )
 from building_detection_tpu_torch.ops import tiling as T
-from building_detection_tpu_torch.parallel.mesh import predictor_devices
+from building_detection_tpu_torch.parallel.mesh import check_local, predictor_devices
 from building_detection_tpu_torch.parallel.tp import tp_device_replicas
 
 
@@ -80,6 +80,7 @@ class TiledPredictor:
         int8_pointwise: bool = False,
         int8_scales: Optional[dict] = None,
     ):
+        check_local(mesh)
         self.devices = predictor_devices(mesh, device)
         self.device = self.devices[0]
         self.tp = bool(tp) and mesh is not None and mesh.model > 1

@@ -23,6 +23,14 @@ fetch.  PyTorch copies between two cards on the source card's current
 stream behind a two-way barrier with the destination's current stream,
 so neither buffer is reused before its copy is done and no
 ``record_stream`` is needed.
+
+Over a mesh that spans processes (``make_mesh()`` in every rank of a
+``torch.distributed`` group, as the JAX package's predictor runs over a
+global mesh in every process) each rank plans, uploads and tiles every
+scene itself, forwards only its data index's part of each chunk
+(:func:`process_shard_forward`), and all-gathers the parts' uint8 member
+bits over the data group, so every rank ORs the whole chunk into its canvas
+and returns every mask, as each JAX process does.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from building_detection_tpu_torch.core.config import TilerConfig
@@ -129,6 +138,23 @@ def shard_forward(stages: Sequence[Stage], tiles: torch.Tensor, devices: Sequenc
     return torch.cat([r.to(home, non_blocking=True) for r in results])[:n]
 
 
+def process_shard_forward(stages: Sequence[Stage], tiles: torch.Tensor, mesh) -> torch.Tensor:
+    """``stages`` over ``tiles`` split across the data axis of a mesh that
+    spans processes: this rank forwards its data index's part (of
+    ``mesh.data`` equal contiguous parts, the batch padded by repeating its
+    last tile, as in :func:`shard_forward`) on the tiles' device, and the
+    parts' results are all-gathered over the data group, so every rank
+    holds the whole chunk's results, in order."""
+    n = tiles.shape[0]
+    pad = -n % mesh.data
+    if pad:
+        tiles = torch.cat([tiles, tiles[-1:].expand(pad, *tiles.shape[1:])])
+    mine = shard_forward(stages, tiles.chunk(mesh.data)[mesh.data_index], [tiles.device]).contiguous()
+    parts = [torch.empty_like(mine) for _ in range(mesh.data)]
+    dist.all_gather(parts, mine, group=mesh.group)
+    return torch.cat(parts)[:n]
+
+
 def check_data_only(mesh) -> None:
     """The JAX package's refusal of a mesh with a model axis on the fused
     path: tiles shard over the data axis only.  The members' channel
@@ -167,7 +193,11 @@ class FusedEnsemblePredictor:
     smaller count.  Each member has one replica per distinct device, with
     the same int8 options; the mesh names the devices, so ``device`` stays
     ``None``.  A mesh with a ``model`` axis raises ``ValueError``, as in the
-    JAX package (:func:`check_data_only`).
+    JAX package (:func:`check_data_only`).  A mesh that spans processes
+    (``make_mesh()`` on every rank) runs each chunk over the ranks of its
+    data axis (:func:`process_shard_forward`), ``batch_tiles`` a rank, on
+    this rank's device (the mesh's, else ``device``); every rank runs every
+    call with the same scenes and returns every mask.
     """
 
     # Scene-group sizes: quantizing bounds the shapes a serving batcher
@@ -188,6 +218,7 @@ class FusedEnsemblePredictor:
         check_data_only(mesh)
         self.devices = predictor_devices(mesh, device)
         self.device = self.devices[0]
+        self._over_processes = mesh if mesh is not None and mesh.world_size > 1 else None
         self.names = list(members)
         self.models = {n: cast_params(m.to(self.device).eval(), compute_dtype) for n, m in members.items()}
         self.replicas = {d: {} for d in dict.fromkeys(self.devices)}
@@ -197,7 +228,8 @@ class FusedEnsemblePredictor:
         self.set_int8(int8_pointwise, int8_scales)
         self._stages = [self._member_stage(bit, name) for bit, name in enumerate(self.names)]
         self.cfg = cfg
-        self.batch_tiles = batch_tiles * len(self.devices)
+        shards = len(self.devices) if self._over_processes is None else self._over_processes.data
+        self.batch_tiles = batch_tiles * shards
         self.compute_dtype = compute_dtype
         self._cuda = self.device.type == "cuda"
         self._upload = torch.cuda.Stream(self.device) if self._cuda else None
@@ -228,7 +260,10 @@ class FusedEnsemblePredictor:
 
     def sharded_bits(self, tiles: torch.Tensor) -> torch.Tensor:
         """:meth:`member_bits` of tiles on the home device, run over the
-        mesh's shards; the bits come back to the home device."""
+        mesh's shards; the bits come back to the home device (over
+        processes: every rank gets every tile's bits)."""
+        if self._over_processes is not None:
+            return process_shard_forward(self._stages, tiles, self._over_processes)
         return shard_forward(self._stages, tiles, self.devices)
 
     def _run_group(self, imgs: torch.Tensor, hw: np.ndarray, plan: T.TilePlan) -> torch.Tensor:

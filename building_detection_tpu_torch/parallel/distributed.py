@@ -9,7 +9,9 @@ global batch:
   ``coordinator_address``, ``num_processes`` and ``process_id`` (a
   ``tcp://`` rendezvous), or with no arguments from the ``torchrun``
   environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``,
-  ``LOCAL_RANK``; ``env://``), where JAX detects a pod.  The backend is
+  ``LOCAL_RANK``; ``env://``), where JAX detects a pod; the workers of
+  :func:`parallel.launch.launch`, one for each of a process's devices,
+  read the same environment.  The backend is
   named, never swapped: ``nccl`` (the default, one card a rank) or
   ``gloo`` (CPU processes, or ranks sharing a card), and a failure to
   start one is raised, not retried with the other;
@@ -47,12 +49,16 @@ def init_distributed(
     """Start this process's process group (idempotent).
 
     ``coordinator_address`` is ``host:port`` of rank 0's rendezvous.  With
-    no arguments the ``torchrun`` environment is read.  ``backend`` is
-    ``'nccl'`` when ``None``; pass ``'gloo'`` for CPU processes.  Under
-    NCCL, or when ``local_device_ids`` names one card, that card becomes
-    the process's current CUDA device: ``local_device_ids[0]``, else the
-    local rank (``LOCAL_RANK``, or ``process_id``) modulo the cards
-    visible.
+    no arguments the ``torchrun`` environment is read, as set by torchrun
+    or by :func:`parallel.launch.launch`.  ``backend`` is ``'nccl'`` when
+    ``None``; pass ``'gloo'`` for CPU processes.  Under NCCL, or when
+    ``local_device_ids`` names cards, one card becomes the process's current
+    CUDA device (:func:`cuda_index`): ``local_device_ids`` are this
+    process's cards, as in ``jax.distributed``, so a launched worker takes
+    ``local_device_ids[LOCAL_RANK]``, a process of its own the one card it
+    names; else the local rank (``LOCAL_RANK``, or ``process_id``) modulo
+    the cards visible.  A process not started by a launcher drives one
+    device: several ids there raise a ``ValueError``.
     """
     if dist.is_initialized():
         return
@@ -74,6 +80,12 @@ def init_distributed(
                 "init_distributed takes coordinator_address ('host:port'), num_processes and process_id "
                 "together, or none of them under torchrun"
             )
+        if local_device_ids is not None and len(local_device_ids) > 1:
+            raise ValueError(
+                f"local_device_ids={list(local_device_ids)}: a process started on its own drives one device. "
+                "To drive several, start a worker for each with parallel/launch.py (launch(fn, ..., "
+                "local_devices=K), or bdt-train/bdt-eval --local-devices K)"
+            )
         init_method = f"tcp://{coordinator_address}"
         world, rank, local = int(num_processes), int(process_id), int(process_id)
     if not 0 <= rank < world:
@@ -86,17 +98,18 @@ def init_distributed(
 
 
 def cuda_index(local_rank: int, local_device_ids: Optional[Sequence[int]], n_cards: int) -> int:
-    """The card a process drives: ``local_device_ids[0]`` where the caller
-    names one, else its local rank modulo the ``n_cards`` visible."""
+    """The card a process drives: with ``local_device_ids`` (this process's
+    cards) the one it names, or ``local_device_ids[local_rank]`` for a
+    launched worker where it names several; else its local rank modulo
+    the ``n_cards`` visible."""
     if local_device_ids is None:
         return local_rank % n_cards
-    if len(local_device_ids) != 1:
-        raise NotImplementedError(
-            f"one process drives one device here, got local_device_ids={list(local_device_ids)}"
-        )
-    index = int(local_device_ids[0])
+    ids = [int(i) for i in local_device_ids]
+    if len(ids) > 1 and not 0 <= local_rank < len(ids):
+        raise ValueError(f"local rank {local_rank} has no card in local_device_ids={ids}")
+    index = ids[0] if len(ids) == 1 else ids[local_rank]
     if not 0 <= index < n_cards:
-        raise ValueError(f"local_device_ids={list(local_device_ids)} names no card of the {n_cards} visible")
+        raise ValueError(f"local_device_ids={ids} names no card of the {n_cards} visible")
     return index
 
 

@@ -37,12 +37,23 @@ inserts the collectives.  torch has two forms of it here:
 
 Without a process group, or at world size 1, a training mesh has ``data ==
 model == 1`` and no group: nothing in the port then runs a collective, and
-a train step is the single-device step bit for bit.  Several local devices
-under a process group of more than one rank (the hybrid) are not ported.
+a train step is the single-device step bit for bit.
+
+Several local devices in each of several processes (JAX's hybrid: one
+controller a host over its devices, several hosts) run one worker a device,
+started by :func:`parallel.launch.launch`: worker ``k`` of process ``p`` is
+rank ``p * K + k``, JAX's process-major device order, and ``Mesh.local_size``
+(``K``, the launcher's ``LOCAL_WORLD_SIZE``) and ``Mesh.process_index`` say
+where a rank sits.  A model group of ``model <= K`` ranks then lies inside
+one process, as the inner axis of JAX's mesh does.  ``make_mesh(devices=[...])``
+with several devices under a process group of more than one rank is refused
+with what to run instead.  The fused predictor also runs over a mesh that
+spans processes (``infer/fused_ensemble.py``), as the JAX package's does.
 """
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
@@ -67,7 +78,10 @@ class Mesh:
     process group's backend, ``None`` without one.  ``devices`` are this
     process's devices, the first of them ``device``: one entry for a
     training process, ``data * model`` entries, row-major, on a mesh of
-    local devices (:func:`make_mesh`).
+    local devices (:func:`make_mesh`).  ``local_size`` is the ranks a
+    launcher process runs (:mod:`parallel.launch`; 1 for a process of its
+    own), so rank ``r`` is worker ``r % local_size`` of process ``r //
+    local_size``.
     """
 
     data: int
@@ -79,6 +93,7 @@ class Mesh:
     backend: Optional[str] = None
     devices: Tuple[Optional[torch.device], ...] = ()
     model_group: Optional[Any] = None
+    local_size: int = 1
 
     def __post_init__(self):
         if not self.devices:
@@ -93,6 +108,17 @@ class Mesh:
     def model_index(self) -> int:
         """This rank's column of the mesh: the channel slice it holds under TP."""
         return self.rank % self.model
+
+    @property
+    def process_index(self) -> int:
+        """The launcher process this rank is a worker of: JAX's
+        ``process_index`` of the device the rank stands for."""
+        return self.rank // self.local_size
+
+    @property
+    def local_rank(self) -> int:
+        """This rank's worker index inside its launcher process."""
+        return self.rank % self.local_size
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -110,21 +136,29 @@ def data_axis_size(world_size: int, data: int = -1, model: int = 1, batch_size: 
     return data
 
 
-def check_covers_ranks(world_size: int, data: int, model: int = 1, batch_size: Optional[int] = None) -> None:
+def check_covers_ranks(
+    world_size: int, data: int, model: int = 1, batch_size: Optional[int] = None, local_size: int = 1
+) -> None:
     """Raise unless a ``data x model`` mesh uses every process exactly (a
     rank outside the mesh would own no rows and idle, or block the others in
     their first collective) and a global batch of ``batch_size`` splits
-    over its data axis."""
+    over its data axis.  ``local_size`` is the workers a launcher process
+    runs: the message names the launcher processes whose workers all fall
+    off the mesh, as the JAX package names the processes whose devices do."""
     used = data * model
     if data < 1 or used > world_size:
         raise ValueError(
             f"a mesh of data={data} x model={model} needs {used} processes and the run has {world_size}: "
             "launch one process per device with init_distributed first: bdt-train --coordinator HOST:PORT "
-            "--num-processes N --process-id I, or torchrun --nproc-per-node N ... --num-processes 0"
+            "--num-processes N --process-id I [--local-devices K], or torchrun --nproc-per-node N ... "
+            "--num-processes 0, or parallel/launch.py's launch(fn, ..., local_devices=K)"
         )
     if used < world_size:
+        left = list(range(used, world_size))
+        whole = sorted({r // local_size for r in left if (r // local_size) * local_size >= used})
+        procs = f", all workers of process(es) {whole}," if local_size > 1 and whole else ""
         raise ValueError(
-            f"mesh uses {used} of {world_size} processes and excludes rank(s) {list(range(used, world_size))} "
+            f"mesh uses {used} of {world_size} processes and excludes rank(s) {left}{procs} "
             f"(batch_size={batch_size} caps the data axis at {data}); raise --batch-size to cover every "
             "process or pass --data-parallel explicitly"
         )
@@ -133,6 +167,14 @@ def check_covers_ranks(world_size: int, data: int, model: int = 1, batch_size: O
             f"a global batch of {batch_size} does not split over data={data}: pass a --batch-size that {data} "
             "divides, or --data-parallel -1 (the largest data axis the batch divides)"
         )
+
+
+def launched_local_size(world_size: int) -> int:
+    """The workers of each launcher process: ``LOCAL_WORLD_SIZE`` where a
+    launcher (:mod:`parallel.launch`, torchrun) set it and it divides the
+    world, else 1 (a process of its own)."""
+    size = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    return size if size >= 1 and world_size % size == 0 else 1
 
 
 def _local_devices(devices) -> Tuple[Optional[torch.device], ...]:
@@ -177,10 +219,11 @@ def make_mesh(
     local = _local_devices(devices)
     if len(local) > 1:
         if world > 1:
-            raise NotImplementedError(
-                f"{len(local)} local devices in each of {world} processes (several devices per process under a "
-                "process group) is not ported: run one process per device for training, or one process over "
-                "its local devices without a process group for inference"
+            raise ValueError(
+                f"{len(local)} local devices in each of {world} processes: under a process group a process "
+                "drives one device. Start a worker a device instead, with parallel/launch.py (launch(fn, ..., "
+                f"local_devices={len(local)}), or bdt-train/bdt-eval --local-devices {len(local)}); each worker "
+                "then calls make_mesh() over the ranks of every process, JAX's process-major device order"
             )
         if data == -1:
             data = len(local) // model
@@ -190,8 +233,9 @@ def make_mesh(
                 f"number divided by model={model}"
             )
         return Mesh(data, model, rank, world, local[0], None, backend, local)
+    local_size = launched_local_size(world) if world > 1 else 1
     data = data_axis_size(world, data, model, batch_size)
-    check_covers_ranks(world, data, model, batch_size)
+    check_covers_ranks(world, data, model, batch_size, local_size)
     device = local[0]
     if device is None and backend == "nccl":
         device = torch.device("cuda", torch.cuda.current_device())
@@ -205,7 +249,7 @@ def make_mesh(
         data_groups = [dist.new_group([d * model + m for d in range(data)]) for m in range(model)]
         model_groups = [dist.new_group([d * model + m for m in range(model)]) for d in range(data)]
         data_group, model_group = data_groups[rank % model], model_groups[rank // model]
-    return Mesh(data, model, rank, world, device, data_group, backend, model_group=model_group)
+    return Mesh(data, model, rank, world, device, data_group, backend, model_group=model_group, local_size=local_size)
 
 
 def _canonical(device: torch.device) -> torch.device:
@@ -225,10 +269,24 @@ def predictor_devices(mesh: Optional[Mesh], device=None) -> Tuple[torch.device, 
     (default: the card) stands for the entries the mesh leaves unnamed; a
     mesh that names its devices takes no ``device``.  Every device of the
     mesh passes :func:`core.device.check_device`: a card that is not there
-    raises here, at set-up."""
+    raises here, at set-up.  On a mesh that spans processes it is this
+    rank's one device (:func:`rank_device`)."""
+    if isinstance(mesh, Mesh) and mesh.world_size > 1:
+        return (rank_device(mesh, device),)
     entries = mesh_devices(mesh, device)
     step = 1 if mesh is None else mesh.model
     return entries[::step]
+
+
+def rank_device(mesh: Mesh, device=None) -> torch.device:
+    """This rank's device on a mesh that spans processes: the one the mesh
+    pins (NCCL: the card ``init_distributed`` selected), else ``device``,
+    else the card; checked as :func:`predictor_devices` says."""
+    if mesh.device is not None and device is not None and _canonical(torch.device(device)) != _canonical(mesh.device):
+        raise ValueError(f"device {device} contradicts the mesh's device {mesh.device}")
+    dev = mesh.device if mesh.device is not None else torch.device(device if device is not None else "cuda")
+    check_device(dev)
+    return _canonical(dev)
 
 
 def mesh_devices(mesh: Optional[Mesh], device=None) -> Tuple[torch.device, ...]:
@@ -242,11 +300,8 @@ def mesh_devices(mesh: Optional[Mesh], device=None) -> Tuple[torch.device, ...]:
             f"mesh must be a building_detection_tpu_torch.parallel.mesh.Mesh (from make_mesh), "
             f"got {type(mesh).__name__}"
         )
-    elif mesh.world_size > 1:
-        raise NotImplementedError(
-            f"a predictor runs in one process, and this mesh spans {mesh.world_size}: pass a mesh of local devices"
-        )
     else:
+        check_local(mesh)
         entries = mesh.devices
         if len(entries) != mesh.data * mesh.model:
             raise ValueError(
@@ -260,6 +315,17 @@ def mesh_devices(mesh: Optional[Mesh], device=None) -> Tuple[torch.device, ...]:
     for d in dict.fromkeys(named):
         check_device(d)
     return tuple(_canonical(d) for d in named)
+
+
+def check_local(mesh: Optional[Mesh]) -> None:
+    """Raise unless ``mesh`` is ``None`` or lies in this process: over a
+    mesh that spans processes only the fused predictor runs."""
+    if isinstance(mesh, Mesh) and mesh.world_size > 1:
+        raise NotImplementedError(
+            f"this mesh spans {mesh.world_size} processes: over processes only the fused predictor runs "
+            "(FusedEnsemblePredictor, Pipeline(mesh=)); TiledPredictor and channel TP in inference run in one "
+            "process over a mesh of its local devices"
+        )
 
 
 def data_rows(mesh: Mesh, n: int) -> slice:

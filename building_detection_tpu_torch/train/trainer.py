@@ -41,7 +41,9 @@ package's ``Trainer(mesh=...)`` does over a mesh's data axis:
 At ``data == 1`` (no process group, or world size 1) no collective runs and
 the step is the single-device step bit for bit.  A mesh of several local
 devices (the predictors' tile data parallelism) is refused with a
-``ValueError``: training runs one process per device.
+``ValueError``: training runs one process per device, and
+``parallel/launch.py`` starts one worker for each of a process's devices,
+where JAX's ``Trainer()`` takes every local device.
 
 ``tp=True`` on a mesh with ``model > 1`` (``make_mesh(data, model)`` over
 ``data * model`` processes) trains with channel tensor parallelism, as the
@@ -171,9 +173,12 @@ class Trainer:
             )
         if len(mesh.devices) > 1:
             raise ValueError(
-                f"a mesh of {len(mesh.devices)} local devices is for inference: training over several devices runs "
-                "one process per device (bdt-train --coordinator HOST:PORT --num-processes N --process-id I, or "
-                "torchrun --nproc-per-node N ... --num-processes 0)"
+                f"a mesh of {len(mesh.devices)} local devices is for inference: training runs one process per "
+                "device. To train over this process's devices, start a worker a device with parallel/launch.py, "
+                f"launch(fn, ..., local_devices={len(mesh.devices)}) where fn builds Trainer(name, cfg, "
+                f"mesh=make_mesh()), or run bdt-train --local-devices {len(mesh.devices)}; over several processes "
+                "add --coordinator HOST:PORT --num-processes N --process-id I (or run under torchrun "
+                "--nproc-per-node N ... --num-processes 0)"
             )
         self.mesh = mesh
         self.tp = bool(tp) and mesh.model > 1

@@ -59,6 +59,20 @@ default device (the card):
   each rank's (4, 512, 512) labels once a step); and ``bdt-train
   --coordinator ... --num-processes 1 --process-id 0`` on the card, whose
   checkpoint restores;
+* every local card of each process (``[hybrid]``, ``parallel/launch.py``):
+  res34 at 128x128, global batch 8, 2 f32 steps (TF32 off) through
+  ``bdt-train``'s body in every worker, (a) two launcher processes of two
+  workers against (b) one of four (loss rel 1e-5, checkpoint params atol
+  1e-5; whether they are bit-equal is printed), then ``bdt-eval``'s body on
+  (a)'s checkpoint in both layouts (the same metrics), then bf16 steps a
+  rank against one card alone (step ms and peak memory, no gate).  On four
+  cards or more it runs the shipped CLI over NCCL (``--local-devices 2
+  --coordinator ...`` on cards 0,1 and 2,3; no process flags over four
+  cards), each launcher a ``chip_smoke.py --hybrid-cli ARGS`` child whose
+  workers run ``hybrid_body``; with fewer, the launcher's library form over
+  Gloo workers sharing the cards (``--hybrid-lib``).  Every rank's place and
+  card is printed, and the edge kernel is held bit-equal to its twin on
+  every rank's (2, 128, 128) labels at each call;
 * channel tensor parallelism (``[tp]``, ``parallel/tp.py``): v3plus, whose
   728-channel Xception middle flow has the widest sharded convs, through
   ``TiledPredictor(tp=True)`` on ``cuda:0`` twice (``data=1 x model=2``;
@@ -82,7 +96,7 @@ default device (the card):
   learning-smoke recipe (``train/learn_smoke.py``: synthetic rectangles,
   300 bf16 steps at 128x128 for res34, scse and hrnet, 150 for v3plus and
   bam, staged chunks of 50, warmup-cosine from lr 5e-4), to a held-out
-  IoU above 0.5 with the eval-mode model; then three steps of each member
+  IoU above 0.5 with the eval-mode model; then two steps of each member
   at that size are profiled under ``utils/profiling.py::device_trace``:
   device ops and device milliseconds a step, and the busy share against
   the unprofiled step's CUDA-event time.
@@ -173,8 +187,15 @@ TP_TIMEOUT_S = 600
 TP_RESULT = "tp result "
 MORPH_VOTE = (5, 4096, 4096)      # majority_vote: five 4096^2 masks
 MORPH_FILL = 1024                 # fill_holes: a 1024^2 mask with holes
-LEARN_WARMUP_STEPS = 2            # [learn] profile: bf16 steps at the recipe's 128^2 before the timed ones
-LEARN_PROFILE_STEPS = 3           # ... steps timed by CUDA events, then as many under device_trace
+LEARN_WARMUP_STEPS = 1            # [learn] profile: bf16 steps at the recipe's 128^2 before the timed ones
+LEARN_PROFILE_STEPS = 2           # ... steps timed by CUDA events, then as many under device_trace
+HYBRID_MEMBER = "res34"           # the [hybrid] member: its BN statistics reduce over every rank
+HYBRID_PX = 128                   # [hybrid]: 16 samples of 128^2, global batch 8, 2 f32 steps through bdt-train
+HYBRID_SAMPLES = 16
+HYBRID_BF16_STEPS = 2             # bf16 steps a rank after the CLI legs: 1 warm-up, then 1 timed
+HYBRID_LOSS_RTOL = 1e-5           # (a) two processes x 2 against (b) one process x 4
+HYBRID_PARAM_ATOL = 1e-5
+HYBRID_TIMEOUT_S = 300
 
 
 class SmokeFailure(RuntimeError):
@@ -902,7 +923,7 @@ def tile_dp_eval(here: str, smi: str) -> int:
         *ranks, alone = dryrun.run_processes([
             [sys.executable, me, "--exact-eval", *args, "--data-parallel", str(n), "--coordinator",
              f"127.0.0.1:{port}", "--num-processes", str(n), "--process-id", str(r)] for r in range(n)
-        ] + [[sys.executable, me, "--exact-eval", *args]], env, DP_TIMEOUT_S, cwd=here)
+        ] + [[sys.executable, me, "--exact-eval", *args, "--local-devices", "1"]], env, DP_TIMEOUT_S, cwd=here)
         multi_s = time.perf_counter() - start
 
     def parse(run, what):
@@ -1698,6 +1719,255 @@ def phase_dp(here: str, work: str, smi: str) -> tuple:
     return kinds["mesh"] + sum(g["launches"] for g in gloo), kinds["plain"]
 
 
+def hybrid_body(args) -> int:
+    """One launched worker of the ``[hybrid]`` phase, in place of
+    ``bdt-train``'s body (the launcher pickles it by name): ``bdt-train``'s
+    own body on ``args`` in f32 with TF32 off, ``bdt-eval``'s body on layout
+    (a)'s checkpoint, then bf16 steps of a ``Trainer`` over the ranks, timed
+    by CUDA events.  Every label batch ``make_targets`` hands the edge
+    kernel is held against its twin.  Writes ``<layout>_rank<r>.json`` beside
+    the checkpoint directory."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from building_detection_tpu_torch.cli import evaluate as cli_eval
+    from building_detection_tpu_torch.cli import train as cli_train
+    from building_detection_tpu_torch.core.config import TrainConfig
+    from building_detection_tpu_torch.kernels import edge_weights as K
+    from building_detection_tpu_torch.parallel.mesh import make_mesh
+    from building_detection_tpu_torch.train import trainer as trainer_module
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    calls = []
+    targets_edges = trainer_module.edge_weight_maps
+
+    def recorded(label, *rest):
+        before = K.edge_weight_maps.launches
+        got = targets_edges(label, *rest)
+        launched = K.edge_weight_maps.launches - before
+        want = K.edge_weight_maps_plain(label, *rest)
+        calls.append({"shape": list(label.shape), "launches": launched,
+                      "equal": all(torch.equal(g, w) for g, w in zip(got, want))})
+        return got
+
+    trainer_module.edge_weight_maps = recorded  # the labels make_targets hands to the kernel's wrapper
+    root, layout = os.path.split(os.path.abspath(args.checkpoint_dir))
+    rank = dist.get_rank()
+    K.edge_weight_maps.launches = 0
+    saved = exact_f32()
+    try:
+        start = time.perf_counter()
+        cli_train.train(args)
+        train_s = time.perf_counter() - start
+        dist.barrier()  # rank 0 has written the checkpoint
+        eval_args = cli_eval.build_parser().parse_args([
+            args.model, "--checkpoint", os.path.join(root, "a", "epoch_1_weights.npz"), "--images",
+            args.train_images, "--labels", args.train_labels, "--batch-size", str(args.batch_size), "--image-size",
+            str(args.image_size), "--precision", "f32", "--device", args.device, "--num-processes", "0",
+        ])
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            cli_eval.evaluate(eval_args)
+    finally:
+        restore_backends(saved)
+    f32_launches = K.edge_weight_maps.launches
+    cfg = TrainConfig(batch_size=args.batch_size, image_size=args.image_size, warmup_epochs=0)
+    imgs, labs = train_batch(SEED + 70, cfg.batch_size, cfg.image_size)
+    torch.cuda.empty_cache()
+    tr = Trainer(args.model, cfg, seed=SEED, compute_dtype=torch.bfloat16, mesh=make_mesh(batch_size=cfg.batch_size))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(HYBRID_BF16_STEPS):
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        tr.train_on_batch(imgs, labs)
+        end.record()
+        end.synchronize()
+        times.append(begin.elapsed_time(end))
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    index = torch.cuda.current_device()
+    out = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend(),
+           "process": tr.mesh.process_index, "worker": tr.mesh.local_rank, "local_rank": int(os.environ["LOCAL_RANK"]),
+           "device": str(tr.device), "cuda_index": index, "visible": visible,
+           "card": int(visible.split(",")[index]) if visible else index, "name": torch.cuda.get_device_name(index),
+           "train_s": train_s, "f32_launches": f32_launches, "launches": K.edge_weight_maps.launches, "calls": calls,
+           "eval": [json.loads(ln) for ln in printed.getvalue().splitlines() if ln.startswith("{")],
+           "bf16_ms": times, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    with open(os.path.join(root, f"{layout}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def hybrid_cli(argv) -> int:
+    """``chip_smoke.py --hybrid-cli ARGS``: ``bdt-train ARGS`` as shipped
+    (its ``--local-devices`` launcher and all), with :func:`hybrid_body` in
+    place of its body in the workers."""
+    from building_detection_tpu_torch.cli import train as cli_train
+
+    cli_train.train = hybrid_body
+    return cli_train.main(argv)
+
+
+def hybrid_lib(spec: dict) -> int:
+    """``chip_smoke.py --hybrid-lib SPEC``: the launcher's library form over
+    Gloo workers sharing the cards (worker ``k`` on card ``k % cards``),
+    running :func:`hybrid_body` on ``bdt-train``'s arguments."""
+    from building_detection_tpu_torch.cli import train as cli_train
+    from building_detection_tpu_torch.parallel.launch import launch
+
+    args = cli_train.build_parser().parse_args(spec["argv"] + ["--num-processes", "0"])
+    launch(hybrid_body, args, local_devices=spec["local"], coordinator=spec["coordinator"],
+           num_processes=spec["processes"], process_id=spec["pid"], backend="gloo", device_type="cuda")
+    return 0
+
+
+def phase_hybrid(here: str, work: str, smi: str) -> tuple:
+    """Every local card of each process (``parallel/launch.py``): res34
+    through ``bdt-train``'s body, 128^2, global batch 8, 2 f32 steps (TF32
+    off), (a) two launcher processes of two workers against (b) one of
+    four, then ``bdt-eval``'s body on (a)'s checkpoint in both layouts and
+    bf16 steps a rank.  With four cards or more, the shipped CLI over NCCL:
+    (a) ``--coordinator ... --num-processes 2 --process-id i --local-devices
+    2`` on cards 0,1 and 2,3, (b) no process flags over the four cards (the
+    JAX default, ``gcd(8, 4) = 4`` workers); with fewer, the library form
+    over Gloo workers sharing the cards (NCCL refuses more workers than
+    cards).  Returns the edge-kernel launches of the workers and of the
+    one-card comparison steps."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from building_detection_tpu_torch.core.config import TrainConfig
+    from building_detection_tpu_torch.kernels import edge_weights as K
+    from building_detection_tpu_torch.parallel import dryrun
+    from building_detection_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    me, env = os.path.abspath(__file__), port_env(here)
+    cards = torch.cuda.device_count()
+    for sub in ("img", "lab"):
+        os.makedirs(os.path.join(work, sub))
+    for i in range(HYBRID_SAMPLES):
+        img, lab = train_batch(SEED + 80 + i, 1, HYBRID_PX)
+        Image.fromarray(img[0]).save(os.path.join(work, "img", f"{i:02d}.png"))
+        Image.fromarray(lab[0]).save(os.path.join(work, "lab", f"{i:02d}.png"))
+    base = [HYBRID_MEMBER, "--train-images", os.path.join(work, "img"), "--train-labels", os.path.join(work, "lab"),
+            "--batch-size", "8", "--epochs", "1", "--warmup-epochs", "0", "--image-size", str(HYBRID_PX),
+            "--precision", "f32", "--device", "cuda"]
+    port = dryrun.free_port()
+    if cards >= 4:
+        form = "bdt-train over NCCL, one card a worker"
+        legs = {
+            "a": [["env", f"CUDA_VISIBLE_DEVICES={p * 2},{p * 2 + 1}", sys.executable, me, "--hybrid-cli", *base,
+                   "--checkpoint-dir", os.path.join(work, "a"), "--coordinator", f"127.0.0.1:{port}",
+                   "--num-processes", "2", "--process-id", str(p), "--local-devices", "2"] for p in range(2)],
+            "b": [["env", "CUDA_VISIBLE_DEVICES=0,1,2,3", sys.executable, me, "--hybrid-cli", *base,
+                   "--checkpoint-dir", os.path.join(work, "b")]],
+        }
+    else:
+        form = f"the library form over Gloo, the workers sharing {cards} card(s)"
+
+        def lib(layout, local, processes, pid, coordinator):
+            spec = {"argv": base + ["--checkpoint-dir", os.path.join(work, layout)], "local": local,
+                    "processes": processes, "pid": pid, "coordinator": coordinator}
+            return [sys.executable, me, "--hybrid-lib", json.dumps(spec)]
+
+        legs = {"a": [lib("a", 2, 2, p, f"127.0.0.1:{port}") for p in range(2)], "b": [lib("b", 4, 1, 0, None)]}
+    ranks, secs = {}, {}
+    for layout in ("a", "b"):
+        start = time.perf_counter()
+        runs = dryrun.run_processes(legs[layout], env, HYBRID_TIMEOUT_S, cwd=here)
+        secs[layout] = time.perf_counter() - start
+        for i, (rc, text) in enumerate(runs):
+            check(rc == 0, f"[hybrid] ({layout}) launcher process {i} exited {rc}: {text[-4000:]}")
+        ranks[layout] = []
+        for r in range(4):
+            with open(os.path.join(work, f"{layout}_rank{r}.json")) as f:
+                ranks[layout].append(json.load(f))
+
+    for layout, what in (("a", "two launcher processes x 2 workers"), ("b", "one launcher process x 4 workers")):
+        for info in ranks[layout]:
+            say("hybrid", f"({layout}) {what}: rank {info['rank']} of {info['world']} ({info['backend']}) = process "
+                          f"{info['process']} worker {info['worker']} on {info['device']} (CUDA_VISIBLE_DEVICES="
+                          f"{info['visible']}, card {info['card']}, {info['name']})")
+            check(info["rank"] == 2 * info["process"] + info["worker"] if layout == "a" else info["worker"] == info["rank"],
+                  f"[hybrid] ({layout}) rank {info['rank']} is process {info['process']} worker {info['worker']}")
+    # (a) against (b): the history's loss and the checkpoint's params
+    losses = {}
+    for layout in ("a", "b"):
+        with open(os.path.join(work, layout, "history.json")) as f:
+            losses[layout] = json.load(f)[-1]["loss"]
+    rel = abs(losses["a"] - losses["b"]) / abs(losses["b"])
+    with np.load(os.path.join(work, "a", "epoch_1_weights.npz")) as za, \
+            np.load(os.path.join(work, "b", "epoch_1_weights.npz")) as zb:
+        check(sorted(za.files) == sorted(zb.files), "[hybrid] the two checkpoints hold other keys")
+        params = [k for k in za.files if k.startswith("params||")]
+        worst = max(float(np.max(np.abs(za[k] - zb[k]))) for k in params)
+        bit_equal = all(np.array_equal(za[k], zb[k]) for k in za.files)
+    say("hybrid", f"{HYBRID_MEMBER} {HYBRID_PX}x{HYBRID_PX}, global batch 8, 2 f32 steps (TF32 off), {form}: loss (a) "
+                  f"{losses['a']!r}, (b) {losses['b']!r}, rel |d| {rel:.2e} (rtol {HYBRID_LOSS_RTOL}); checkpoint "
+                  f"params max |d| {worst:.2e} (atol {HYBRID_PARAM_ATOL}); the two checkpoints "
+                  f"{'bit-equal' if bit_equal else 'NOT bit-equal'} ({smi})")
+    check(rel <= HYBRID_LOSS_RTOL, f"[hybrid] (a) and (b) losses differ by rel {rel}")
+    check(worst <= HYBRID_PARAM_ATOL, f"[hybrid] (a) and (b) params differ by {worst}")
+    # the edge kernel on every rank, every step
+    launches = 0
+    for layout in ("a", "b"):
+        for info in ranks[layout]:
+            calls = info["calls"]
+            check(calls and all(c["equal"] and c["launches"] == 1 and c["shape"] == [2, HYBRID_PX, HYBRID_PX]
+                                for c in calls) and info["launches"] == len(calls),
+                  f"[hybrid] ({layout}) rank {info['rank']}: edge kernel calls {calls}, launches {info['launches']}")
+            launches += info["launches"]
+    say("hybrid", f"edge kernel bit-equal to its twin on every rank's (2, {HYBRID_PX}, {HYBRID_PX}) labels at each of "
+                  f"its {len(ranks['a'][0]['calls'])} calls a rank (2 training steps, 2 evaluation batches, "
+                  f"{HYBRID_BF16_STEPS} bf16 steps), one launch each: {launches} launches over the 8 workers")
+    # (c) bdt-eval's body on (a)'s checkpoint, both ways: one line, from rank 0, the same metrics
+    evals = {layout: [info["eval"] for info in ranks[layout]] for layout in ("a", "b")}
+    for layout in ("a", "b"):
+        check(len(evals[layout][0]) == 1 and not any(evals[layout][1:]),
+              f"[hybrid] ({layout}) bdt-eval printed {[len(e) for e in evals[layout]]} lines by rank, not one from rank 0")
+    (ea,), (eb,) = evals["a"][0], evals["b"][0]
+    eval_rel = abs(ea["loss"] - eb["loss"]) / abs(eb["loss"])
+    say("hybrid", f"(c) bdt-eval of (a)'s checkpoint, f32: (a) {json.dumps(ea)}; (b) {json.dumps(eb)}; loss rel |d| "
+                  f"{eval_rel:.2e}")
+    check(sorted(ea) == sorted(eb) and all(ea[k] == eb[k] for k in ea if k != "loss") and eval_rel <= 1e-6,
+          "[hybrid] (c) the metrics of the two layouts differ")
+    # bf16 steps: a rank of (a), of (b), and one card alone
+    cfg = TrainConfig(batch_size=8, image_size=HYBRID_PX, warmup_epochs=0)
+    imgs, labs = train_batch(SEED + 70, cfg.batch_size, cfg.image_size)
+    torch.cuda.empty_cache()
+    before = K.edge_weight_maps.launches
+    single = Trainer(HYBRID_MEMBER, cfg, seed=SEED, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(HYBRID_BF16_STEPS):
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        single.train_on_batch(imgs, labs)
+        end.record()
+        end.synchronize()
+        times.append(begin.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plain_launches = K.edge_weight_maps.launches - before
+    del single
+    torch.cuda.empty_cache()
+    for layout in ("a", "b"):
+        say("hybrid", f"({layout}) {HYBRID_MEMBER} bf16 {HYBRID_PX}x{HYBRID_PX}, 2 rows a rank: step " + "; ".join(
+            f"rank {i['rank']} " + " / ".join(f"{ms:.1f}" for ms in i["bf16_ms"]) + f" ms, peak {i['peak_gib']:.3f} GiB"
+            for i in ranks[layout]) + f" (CUDA events, the first warms up); bdt-train's body "
+            + " / ".join(f"{i['train_s']:.1f}" for i in ranks[layout])
+            + f" s a rank, launcher wall {secs[layout]:.1f} s ({smi})")
+    say("hybrid", f"one card alone, batch 8: step " + " / ".join(f"{ms:.1f}" for ms in times)
+                  + f" ms, peak {peak:.3f} GiB; phase {time.perf_counter() - t0:.1f} s ({smi})")
+    return launches, plain_launches
+
+
 def phase_tp_infer(smi: str) -> None:
     """Channel TP in inference: ``TiledPredictor(tp=True)`` over ``cuda:0``
     twice (``data=1 x model=2``), and on four cards also ``model=4`` and
@@ -2161,19 +2431,23 @@ def main() -> int:
     learn_launches = phase_learn(here, smi)
     with tempfile.TemporaryDirectory(dir=here) as work:
         dp_launches, dp_plain_launches = phase_dp(here, work, smi)
+    with tempfile.TemporaryDirectory(dir=here) as work:
+        hybrid_launches, hybrid_plain_launches = phase_hybrid(here, work, smi)
     phase_tp_infer(smi)
     with tempfile.TemporaryDirectory(dir=here) as work:
         tp_launches, tp_plain_launches = phase_tp_train(here, work, smi)
     phase_morph(smi)
     serving_launches = launches["edge_weight_maps"]
     launches["edge_weight_maps"] += (train_launches + remat_launches + learn_launches + dp_launches
-                                     + dp_plain_launches + eval_launches + tp_launches + tp_plain_launches)
+                                     + dp_plain_launches + eval_launches + tp_launches + tp_plain_launches
+                                     + hybrid_launches + hybrid_plain_launches)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; edge-kernel launches: serving path "
                 f"{serving_launches}, training path {train_launches}, remat steps {remat_launches}, learning runs and "
                 f"their profiles {learn_launches}, data-parallel "
                 f"steps {dp_launches}, the [dp] phase's plain comparison steps {dp_plain_launches}, the [tile_dp] "
                 f"phase's bdt-eval processes {eval_launches}, tensor-parallel steps {tp_launches}, the [tp] phase's "
-                f"one-process comparison step {tp_plain_launches}; torch._int_mm "
+                f"one-process comparison step {tp_plain_launches}, the [hybrid] phase's workers {hybrid_launches} "
+                f"and its one-card comparison steps {hybrid_plain_launches}; torch._int_mm "
                 f"launches on the int8 path {int_mm_calls}")
     kernels = [{
         "name": "edge_weight_maps",
@@ -2196,6 +2470,12 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-child"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(tp_child(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--hybrid-cli"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(hybrid_cli(sys.argv[2:]))
+    if sys.argv[1:2] == ["--hybrid-lib"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(hybrid_lib(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--enqueue-probe"]:
         sys.path.insert(0, os.getcwd())
         sys.exit(enqueue_probe())

@@ -337,7 +337,9 @@ def test_cli_under_torchrun(tmp_path):
             "--num-processes", "0"]
     ((rc, out),) = run_ranks(lambda i: argv, tmp_path, n=1)
     assert rc == 0, out[-6000:]
-    assert "process 0: feeding 8 samples" in out and "process 1: feeding 8 samples" in out, out
+    # torchrun's agent is one launcher process of two workers (LOCAL_WORLD_SIZE=2)
+    assert "process 0 worker 0 rank 0: feeding 8 samples" in out, out
+    assert "process 0 worker 1 rank 1: feeding 8 samples" in out, out
     assert load_variables(str(tmp_path / "ck" / "epoch_1_weights.npz"))[3] == 2
 
 

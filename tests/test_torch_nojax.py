@@ -9,12 +9,13 @@ JAX package, and its entry points run on the card unless asked for the CPU.
   blocked path, int8 pointwise convs (calibration, fused and per-model),
   ``bdt-convert``'s refusals, ``bdt-client`` against the port's server, and
   the predict, serve and augment CLIs as far as they need no image file,
-  run end to end on the CPU.
+  and the launcher over two Gloo workers run end to end on the CPU.
 * No file of the port, and not ``chip_smoke.py``, imports the JAX package
   (an AST scan, which also sees imports inside functions).
 * ``Pipeline()``, ``FusedEnsemblePredictor``, ``Trainer``,
-  ``TiledPredictor``, ``EnsemblePredictor`` and the predict and serve CLIs
-  with no device argument ask for the card, and raise where torch sees none.
+  ``TiledPredictor``, ``EnsemblePredictor``, the launcher
+  (``parallel/launch.py``) and the predict and serve CLIs with no device
+  argument ask for the card, and raise where torch sees none.
 """
 import ast
 import os
@@ -193,6 +194,11 @@ SCRIPT = textwrap.dedent(
             httpd.shutdown()
             httpd.server_close()
             thread.join(timeout=30)
+    # the launcher: two Gloo CPU workers, rank 0's value back
+    import operator
+    from building_detection_tpu_torch.parallel.launch import launch
+    assert launch(operator.add, 1, 2, local_devices=2, backend="gloo", device_type="cpu") == 3
+
     for mod in ("jax", "PIL", "cv2", "building_detection_tpu"):
         assert sys.modules[mod] is None, mod
     assert not [m for m in sys.modules if m.startswith("building_detection_tpu.")]
@@ -242,6 +248,7 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from building_detection_tpu_torch.infer.fused_ensemble import FusedEnsemblePredictor
     from building_detection_tpu_torch.infer.pipeline import Pipeline
     from building_detection_tpu_torch.parallel import dryrun
+    from building_detection_tpu_torch.parallel.launch import launch
     from building_detection_tpu_torch.train.trainer import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -250,7 +257,7 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         lambda: TiledPredictor(torch.nn.Identity()), lambda: EnsemblePredictor({}),
         lambda: predict_cli.main(["--image", str(tmp_path / "x.png"), "--out", str(tmp_path)]),
         lambda: serve_cli.main(["--port", "0", "--root-dir", str(tmp_path)]),
-        lambda: dryrun.dryrun_multichip(1), lambda: dryrun.main(["1"]),
+        lambda: dryrun.dryrun_multichip(1), lambda: dryrun.main(["1"]), lambda: launch(print, local_devices=2),
     ):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             make()

@@ -186,7 +186,9 @@ def test_cuda_index_prefers_local_device_ids():
     assert [pdist.cuda_index(r, None, 4) for r in range(6)] == [0, 1, 2, 3, 0, 1]
     assert pdist.cuda_index(0, [3], 4) == 3  # names a card other than the local rank's
     assert pdist.cuda_index(1, [0], 4) == 0  # two ranks sharing card 0
-    with pytest.raises(NotImplementedError, match="one process drives one device"):
-        pdist.cuda_index(0, [0, 1], 4)
+    # several ids are a launched worker's process's cards: its local rank's
+    assert [pdist.cuda_index(r, [2, 3], 4) for r in range(2)] == [2, 3]
+    with pytest.raises(ValueError, match="local rank 2 has no card"):
+        pdist.cuda_index(2, [0, 1], 4)
     with pytest.raises(ValueError, match="names no card"):
         pdist.cuda_index(0, [4], 4)

@@ -102,16 +102,23 @@ def test_make_mesh_over_local_devices():
 
 
 def test_several_local_devices_under_a_process_group_are_refused(monkeypatch):
-    """The hybrid (several devices per process, several processes) is not
-    ported; a predictor refuses a mesh that spans processes."""
+    """Several devices in a process under a process group are refused with
+    what to run instead (a worker a device, ``parallel/launch.py``); over a
+    mesh that spans processes the fused predictor runs on this rank's device
+    (``test_torch_hybrid.py`` runs it), and ``TiledPredictor`` refuses it."""
     monkeypatch.setattr(pmesh.dist, "is_initialized", lambda: True)
     monkeypatch.setattr(pmesh.dist, "get_world_size", lambda: 2)
     monkeypatch.setattr(pmesh.dist, "get_rank", lambda: 0)
     monkeypatch.setattr(pmesh.dist, "get_backend", lambda: "gloo")
-    with pytest.raises(NotImplementedError, match="2 local devices in each of 2 processes"):
+    with pytest.raises(ValueError, match="2 local devices in each of 2 processes.*parallel/launch.py.*--local-devices 2"):
         pmesh.make_mesh(devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="runs in one process"):
-        pmesh.predictor_devices(pmesh.Mesh(2, 1, 0, 2, torch.device("cpu")))
+    spans = pmesh.Mesh(2, 1, 0, 2, torch.device("cpu"))
+    assert pmesh.predictor_devices(spans) == (torch.device("cpu"),)
+    assert pmesh.predictor_devices(pmesh.Mesh(2, 1, 1, 2), "cpu") == (torch.device("cpu"),)
+    with pytest.raises(NotImplementedError, match="spans 2 processes: over processes only the fused predictor"):
+        TiledPredictor(TinyMember(), CFG, 2, torch.float32, mesh=spans)
+    with pytest.raises(NotImplementedError, match="spans 2 processes"):
+        pmesh.mesh_devices(spans)
 
 
 def test_check_device_refuses_a_card_index_past_the_cards(monkeypatch):
