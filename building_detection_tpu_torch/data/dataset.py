@@ -83,8 +83,12 @@ def _threaded_pipe(iterator: Iterator, prepare, depth: int, name: str) -> Iterat
     An exception in the feeder surfaces at the consumer's ``next()`` rather
     than ending the iteration silently; a consumer that stops early (a fit
     that finished its epochs over an infinite iterator, or raised) releases
-    the worker: closing the generator sets ``done`` and the worker, which
-    never blocks on a full queue for longer than 0.2 s, exits.
+    the worker: closing the generator sets ``done`` and joins the worker,
+    which never blocks on a full queue for longer than 0.2 s.  The join
+    matters at exit: a daemon worker still inside a torch op that released
+    the interpreter lock when the interpreter finalizes is ended by
+    ``pthread_exit`` inside a ``noexcept`` frame, and the process aborts
+    ("terminate called without an active exception").
     """
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = object()
@@ -110,7 +114,8 @@ def _threaded_pipe(iterator: Iterator, prepare, depth: int, name: str) -> Iterat
         finally:
             offer(stop)
 
-    threading.Thread(target=worker, daemon=True, name=name).start()
+    thread = threading.Thread(target=worker, daemon=True, name=name)
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -121,6 +126,7 @@ def _threaded_pipe(iterator: Iterator, prepare, depth: int, name: str) -> Iterat
             yield item
     finally:
         done.set()
+        thread.join()
 
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:

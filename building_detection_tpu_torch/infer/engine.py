@@ -19,7 +19,14 @@ has waited for it.
 ``TiledPredictor(mesh=)`` shards each chunk of tiles over the data rows of a
 mesh of local devices as the fused predictor does
 (``fused_ensemble.shard_forward``), and with ``tp=True`` also shards the
-model's channels over each row's model devices (``parallel/tp.py``);
+model's channels over each row's model devices (``parallel/tp.py``).  Over
+a mesh that spans processes (``make_mesh()`` on every rank of a
+``torch.distributed`` group, as the JAX package's predictor runs over a
+global mesh in every process) each rank forwards its data index's part of
+each chunk and the bits are all-gathered over the data group
+(``fused_ensemble.process_shard_forward``); with ``tp=True`` the rank keeps
+its model index's channel slices and its sharded layers gather their
+channels over the model group (``parallel/tp.py::tp_shard``).
 ``EnsemblePredictor(devices=)`` places the members round-robin on several
 devices, uploads each scene once per distinct device and dispatches every
 member before it fetches any.
@@ -30,6 +37,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from building_detection_tpu_torch.core.config import TilerConfig
@@ -38,13 +46,14 @@ from building_detection_tpu_torch.core.module import cast_params, set_int8
 from building_detection_tpu_torch.infer.fused_ensemble import (
     DEFAULT_BATCH_TILES,
     fetch_pinned,
+    process_shard_forward,
     replicate_model,
     shard_forward,
     upload_pinned,
 )
 from building_detection_tpu_torch.ops import tiling as T
-from building_detection_tpu_torch.parallel.mesh import check_local, predictor_devices
-from building_detection_tpu_torch.parallel.tp import tp_device_replicas
+from building_detection_tpu_torch.parallel.mesh import check_tp_replicas, predictor_devices
+from building_detection_tpu_torch.parallel.tp import tp_device_replicas, tp_shard, tp_tensors
 
 
 class TiledPredictor:
@@ -66,6 +75,25 @@ class TiledPredictor:
     (:func:`parallel.tp.tp_device_replicas`).  Without a mesh, or at
     ``model == 1``, ``tp`` changes nothing; without ``tp`` a model axis only
     repeats each row's work, so it runs once.
+
+    Over a mesh that spans processes (``make_mesh()`` on every rank) the
+    model runs on this rank's device (the mesh's, else ``device``), a chunk
+    is ``batch_tiles * mesh.data`` tiles, and each rank forwards its data
+    index's part of it (:func:`~building_detection_tpu_torch.infer.
+    fused_ensemble.process_shard_forward`).  With ``tp=True`` and ``model >
+    1`` the rank keeps its model index's slices (:func:`parallel.tp.
+    tp_shard`, after the cast, so they carry ``compute_dtype``), checks at
+    construction that the ranks hold the slices and weights one model would
+    give them (a rank built from other weights makes every rank raise), and
+    its sharded layers gather their channels over the model group; a mesh
+    with no model group raises.  Without ``tp`` a model axis repeats each
+    row's work, as in the JAX package.  The ranks of a model group compute
+    the layers they do not shard each on its own device, so each chunk's
+    bits are model index 0's, broadcast over the model group: every rank
+    returns the same mask, bit for bit.  Every rank runs every call with the
+    same scenes, as each JAX process does: the ranks meet in each chunk's
+    collectives, and a degenerate scene (a side not above the overlap)
+    returns its blank mask on every rank without entering one.
     """
 
     def __init__(
@@ -80,25 +108,47 @@ class TiledPredictor:
         int8_pointwise: bool = False,
         int8_scales: Optional[dict] = None,
     ):
-        check_local(mesh)
         self.devices = predictor_devices(mesh, device)
         self.device = self.devices[0]
         self.tp = bool(tp) and mesh is not None and mesh.model > 1
         self.model = set_int8(cast_params(model.to(self.device).eval(), compute_dtype), int8_pointwise, int8_scales)
-        if self.tp:
+        self._over_processes = mesh if mesh is not None and mesh.world_size > 1 else None
+        self._stages = [self._bits]
+        if self._over_processes is not None:
+            if self.tp:
+                tp_shard(self.model, mesh)
+                check_tp_replicas(*tp_tensors(self.model), mesh)
+            self.replicas = {self.device: self.model}
+            if mesh.model_group is not None:
+                self._model_root = dist.get_global_rank(mesh.model_group, 0)
+                self._stages.append(self._model_root_bits)
+        elif self.tp:
             self.replicas = tp_device_replicas(self.model, mesh)
         else:
             self.replicas = replicate_model(self.model, self.devices)
         self.cfg = cfg
-        self.batch_tiles = batch_tiles * len(self.devices)
+        self.batch_tiles = batch_tiles * (mesh.data if self._over_processes is not None else len(self.devices))
         self.compute_dtype = compute_dtype
         self._cuda = self.device.type == "cuda"
         self._upload = torch.cuda.Stream(self.device) if self._cuda else None
 
     def _bits(self, tiles: torch.Tensor, _=None) -> torch.Tensor:
         """(B, tile, tile) uint8 class-1 argmax bits of the replica on the
-        tiles' device: the one stage of :func:`shard_forward`."""
+        tiles' device: the first stage of :func:`shard_forward`."""
         return (torch.argmax(self.replicas[tiles.device](tiles), dim=-1) == 1).to(torch.uint8)
+
+    def _model_root_bits(self, _, bits: torch.Tensor) -> torch.Tensor:
+        """Model index 0's ``bits`` on every rank of this rank's model group."""
+        dist.broadcast(bits, src=self._model_root, group=self._over_processes.model_group)
+        return bits
+
+    def _forward(self, tiles: torch.Tensor) -> torch.Tensor:
+        """The chunk's bits on the home device: over the local shards, or
+        over the ranks of a mesh that spans processes (every rank gets the
+        whole chunk's)."""
+        if self._over_processes is not None:
+            return process_shard_forward(self._stages, tiles, self._over_processes)
+        return shard_forward(self._stages, tiles, self.devices)
 
     # -- device work -------------------------------------------------------
     def _run(self, image: torch.Tensor, plan: T.TilePlan, h: int, w: int) -> torch.Tensor:
@@ -117,7 +167,7 @@ class TiledPredictor:
         for start in range(0, len(origins), batch):
             chunk = origins[start : start + batch]
             tiles = torch.stack([canvas[r : r + tile, c : c + tile] for r, c in chunk])
-            bits = shard_forward([self._bits], tiles, self.devices)
+            bits = self._forward(tiles)
             # per-tile OR == the reference's accumulate-then->=1 (predict.py:113-114)
             for bit, (r, c) in zip(bits, chunk):
                 mask[r : r + tile, c : c + tile] |= bit

@@ -144,7 +144,10 @@ def process_shard_forward(stages: Sequence[Stage], tiles: torch.Tensor, mesh) ->
     ``mesh.data`` equal contiguous parts, the batch padded by repeating its
     last tile, as in :func:`shard_forward`) on the tiles' device, and the
     parts' results are all-gathered over the data group, so every rank
-    holds the whole chunk's results, in order."""
+    holds the whole chunk's results, in order.  At ``data == 1`` there is
+    nothing to gather."""
+    if mesh.data == 1:
+        return shard_forward(stages, tiles, [tiles.device])
     n = tiles.shape[0]
     pad = -n % mesh.data
     if pad:

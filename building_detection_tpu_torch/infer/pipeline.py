@@ -194,7 +194,10 @@ class Pipeline:
         int8_scales: Optional[Dict[str, Dict[str, float]]] = None,
     ):
         if mesh is not None and not fused:
-            raise ValueError("Pipeline(mesh=...) needs fused=True: the per-model engine takes no mesh here")
+            raise ValueError(
+                "Pipeline(mesh=...) needs fused=True: the per-model engine takes no mesh here; run the fused "
+                "Pipeline(mesh=...), or one member at a time through TiledPredictor(model, mesh=..., tp=...)"
+            )
         check_data_only(mesh)
         home = predictor_devices(mesh, device)[0]  # every device checked before any weight loads
         self.cfg = cfg

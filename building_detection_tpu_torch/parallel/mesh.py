@@ -47,8 +47,10 @@ rank ``p * K + k``, JAX's process-major device order, and ``Mesh.local_size``
 where a rank sits.  A model group of ``model <= K`` ranks then lies inside
 one process, as the inner axis of JAX's mesh does.  ``make_mesh(devices=[...])``
 with several devices under a process group of more than one rank is refused
-with what to run instead.  The fused predictor also runs over a mesh that
-spans processes (``infer/fused_ensemble.py``), as the JAX package's does.
+with what to run instead.  The fused predictor and the per-model
+``TiledPredictor`` (tile data parallelism and, with ``tp=True``, channel
+TP over the model group) also run over a mesh that spans processes, a rank
+on its one device (:func:`rank_device`), as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -318,13 +320,15 @@ def mesh_devices(mesh: Optional[Mesh], device=None) -> Tuple[torch.device, ...]:
 
 
 def check_local(mesh: Optional[Mesh]) -> None:
-    """Raise unless ``mesh`` is ``None`` or lies in this process: over a
-    mesh that spans processes only the fused predictor runs."""
+    """Raise unless ``mesh`` is ``None`` or lies in this process: a mesh
+    that spans processes has one device a rank (:func:`rank_device`), not
+    a grid of this process's devices."""
     if isinstance(mesh, Mesh) and mesh.world_size > 1:
         raise NotImplementedError(
-            f"this mesh spans {mesh.world_size} processes: over processes only the fused predictor runs "
-            "(FusedEnsemblePredictor, Pipeline(mesh=)); TiledPredictor and channel TP in inference run in one "
-            "process over a mesh of its local devices"
+            f"this mesh spans {mesh.world_size} processes and each rank drives one device: rank_device(mesh) gives "
+            "it, and the predictors (FusedEnsemblePredictor, TiledPredictor, Pipeline(mesh=)) take such a mesh "
+            "as it is; a list of devices exists only for a mesh of this process's local devices, "
+            "make_mesh(devices=[...])"
         )
 
 

@@ -9,10 +9,14 @@ dim where the axis divides it, everything else stays replicated, as the
 1-channel sSE gates and the 2-class head at ``model`` 4 or 8 do), and the
 layers carry it out (their ``TP_GROUPS`` and the plans of ``nn/layers.py``):
 
-* over processes (training, :func:`tp_shard`): each rank keeps its model
+* over processes (training, and inference in ``TiledPredictor`` over a
+  mesh that spans processes; :func:`tp_shard`): each rank keeps its model
   index's slice of every sharded parameter, Keras Adam moment and
   BatchNorm statistic, and a sharded layer runs ``gather_channels(op(copy_to_model(x), W_r))`` over
-  the model group.  :func:`gather_checkpoint` puts the slices back together
+  the model group (in eval mode a BatchNorm normalizes its input's slice
+  with its slice of the moving statistics; under ``torch.inference_mode``
+  ``copy_to_model`` is the identity it is in every forward).
+  :func:`gather_checkpoint` puts the slices back together
   for a checkpoint, :func:`local_variables` and :func:`local_opt_state` cut
   a checkpoint into them;
 * in one process over the local devices of a mesh (inference,
@@ -99,14 +103,23 @@ def _slice(t: torch.Tensor, dim: int, index: int, size: int) -> torch.Tensor:
     return t.detach().narrow(dim, index * k, k).clone()
 
 
-# -- over processes (training) -------------------------------------------------------
+# -- over processes (training and inference) ------------------------------------------
 def tp_shard(model: nn.Module, mesh: Mesh) -> nn.Module:
     """Keep this rank's model-index slice of every parameter and 1-D
     BatchNorm statistic the rule shards over ``mesh``'s model axis, in
     place (the JAX ``tp_shard_params`` and ``tp_replicate_state`` in one
     walk), and make the layers compute through the model group.  Call it
     once on every rank of the mesh, with the same full weights, before the
-    optimizer takes the parameters."""
+    optimizer takes the parameters (training) or after the cast to the
+    compute dtype (inference: the slices keep the tensors' dtype).  A mesh
+    with no model group (not from ``make_mesh`` under a process group)
+    raises."""
+    if mesh.model_group is None:
+        raise ValueError(
+            f"channel TP over processes at model={mesh.model} needs the mesh's model group: build the mesh with "
+            "make_mesh(data=..., model=...) on every rank of the process group (a mesh of this process's local "
+            "devices, make_mesh(devices=[...]), runs TP in one process)"
+        )
     for _, layer, first, dims in _sharded_groups(model, mesh.model):
         for leaf, dim in dims.items():
             t = getattr(layer, leaf)

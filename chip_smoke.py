@@ -73,6 +73,19 @@ default device (the card):
   Gloo workers sharing the cards (``--hybrid-lib``).  Every rank's place and
   card is printed, and the edge kernel is held bit-equal to its twin on
   every rank's (2, 128, 128) labels at each call;
+* the per-model predictor over a mesh that spans processes
+  (``[tile_procs]``): v3plus at full width through ``TiledPredictor`` on
+  the shipped tiler (512x512 tiles) over a 1024x1024 and a 700x1300 scene,
+  in launched workers (``parallel/launch.py``, each launcher a
+  ``chip_smoke.py --tile-procs SPEC`` child): on one card two Gloo workers
+  sharing it at ``data=2`` and at ``data=1 x model=2, tp=True``; on four
+  cards or more two launchers of two NCCL workers (cards 0,1 and 2,3) at
+  ``data=4``, ``2 x 2`` and ``1 x 4`` with ``tp=True``.  In f32 with TF32
+  off and deterministic cuDNN: tile data parallelism bit-equal to the
+  one-process predictor at the same per-tile forward batch, TP within
+  0.01 % of its pixels, and every rank's masks bit-equal to rank 0's; in
+  bf16 tiles/s and peak memory a rank against one process on one card (no
+  gate);
 * channel tensor parallelism (``[tp]``, ``parallel/tp.py``): v3plus, whose
   728-channel Xception middle flow has the widest sharded convs, through
   ``TiledPredictor(tp=True)`` on ``cuda:0`` twice (``data=1 x model=2``;
@@ -96,7 +109,7 @@ default device (the card):
   learning-smoke recipe (``train/learn_smoke.py``: synthetic rectangles,
   300 bf16 steps at 128x128 for res34, scse and hrnet, 150 for v3plus and
   bam, staged chunks of 50, warmup-cosine from lr 5e-4), to a held-out
-  IoU above 0.5 with the eval-mode model; then two steps of each member
+  IoU above 0.5 with the eval-mode model; then one step of each member
   at that size are profiled under ``utils/profiling.py::device_trace``:
   device ops and device milliseconds a step, and the busy share against
   the unprofiled step's CUDA-event time.
@@ -170,7 +183,7 @@ DP_GLOO_STEPS = 2                 # f32 steps of the two Gloo ranks sharing the 
 DP_LOSS_RTOL = 2e-4               # two ranks vs one process: the JAX package's DP tolerance
 DP_TIMEOUT_S = 600
 TILE_DP_SCENES = ((1024, 1024), (700, 1300))  # 9 and 8 tiles: 9 divides by no shard count above 1
-TILE_DP_RATE_SCENES = 24          # 1024^2 scenes timed in bf16: groups of 3, 6, 12 scenes on 1, 2, 4 shards, 27-tile forwards
+TILE_DP_RATE_SCENES = 12          # 1024^2 scenes timed in bf16: groups of 3, 6, 12 scenes on 1, 2, 4 shards, 27-tile forwards
 TILE_DP_BATCHES = (4, 2, 1)       # per-shard batch_tiles tried for the f32 check, largest first
 EVAL_RESULT = "eval launches "
 ENQUEUE_REPEATS = 7               # one-tile-a-shard sharded_bits calls timed on the host clock, their median
@@ -180,7 +193,7 @@ TP_SCENE = 1024                   # 3 x 3 = 9 tiles
 TP_PIXEL_FRAC = 1e-4              # f32 TP vs one device: at most 0.01 % of the pixels differ (cuDNN picks by shape)
 TP_PROB_ATOL = 1e-4               # ... and the softmax by at most this
 TP_RATE_SCENES = 8                # 1024^2 scenes timed in bf16, TP against one device
-TP_STEPS = 3                      # bf16 TP steps a leg: 1 warm-up, then 2 timed
+TP_STEPS = 2                      # bf16 TP steps a leg: 1 warm-up, then 1 timed
 TP_PARAM_RTOL, TP_PARAM_ATOL = 1e-3, 1e-4  # TP vs one process after one f32 step: the JAX package's TP tolerances
 TP_MOMENT_RTOL, TP_MOMENT_FLOOR = 1e-3, 1e-5  # its Adam moments: of a tensor's largest, plus of the largest of any
 TP_TIMEOUT_S = 600
@@ -188,11 +201,14 @@ TP_RESULT = "tp result "
 MORPH_VOTE = (5, 4096, 4096)      # majority_vote: five 4096^2 masks
 MORPH_FILL = 1024                 # fill_holes: a 1024^2 mask with holes
 LEARN_WARMUP_STEPS = 1            # [learn] profile: bf16 steps at the recipe's 128^2 before the timed ones
-LEARN_PROFILE_STEPS = 2           # ... steps timed by CUDA events, then as many under device_trace
+LEARN_PROFILE_STEPS = 1           # ... steps timed by CUDA events, then as many under device_trace
 HYBRID_MEMBER = "res34"           # the [hybrid] member: its BN statistics reduce over every rank
 HYBRID_PX = 128                   # [hybrid]: 16 samples of 128^2, global batch 8, 2 f32 steps through bdt-train
 HYBRID_SAMPLES = 16
 HYBRID_BF16_STEPS = 2             # bf16 steps a rank after the CLI legs: 1 warm-up, then 1 timed
+TILE_PROCS_RATE_SCENES = 2        # [tile_procs]: 1024^2 scenes timed in bf16 a layout, after one warm-up scene
+TILE_PROCS_TIMEOUT_S = 300
+TILE_PROCS_RESULT = "tile_procs result "
 HYBRID_LOSS_RTOL = 1e-5           # (a) two processes x 2 against (b) one process x 4
 HYBRID_PARAM_ATOL = 1e-5
 HYBRID_TIMEOUT_S = 300
@@ -1968,6 +1984,228 @@ def phase_hybrid(here: str, work: str, smi: str) -> tuple:
     return launches, plain_launches
 
 
+def tile_procs_layouts(cards: int) -> dict:
+    """``{label: (data, model, tp)}`` of the ``[tile_procs]`` meshes."""
+    if cards >= 4:
+        return {"data=4": (4, 1, False), "data=2 x model=2, tp": (2, 2, True), "data=1 x model=4, tp": (1, 4, True)}
+    return {"data=2": (2, 1, False), "data=1 x model=2, tp": (1, 2, True)}
+
+
+def tile_procs_batch(data: int) -> int:
+    """A data row's ``batch_tiles`` in the f32 checks.  Over several data
+    rows chunks of 8 tiles, so every tile of the 9- and 8-tile scenes meets
+    a forward of ``8 // data`` tiles, as in the one-process predictor at
+    that ``batch_tiles``; at ``data=1`` (TP alone) a chunk holds a whole
+    scene, since every chunk pays the sharded layers' gathers (261 in
+    v3plus), which pace TP over Gloo."""
+    return 16 if data == 1 else 8 // data
+
+
+def tile_procs_scenes():
+    """(the f32 scenes, the bf16 timing scenes), the same on every rank."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 90)
+    f32 = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8) for h, w in TILE_DP_SCENES]
+    rate = [rng.randint(0, 256, (TP_SCENE, TP_SCENE, 3)).astype(np.uint8) for _ in range(TILE_PROCS_RATE_SCENES)]
+    return f32, rate
+
+
+def tile_procs_body(spec: dict) -> int:
+    """One launched worker of ``[tile_procs]``: v3plus through
+    ``TiledPredictor`` over ``make_mesh(data, model)`` of every rank, for
+    each layout of the spec, in f32 (TF32 off, deterministic cuDNN) on the
+    f32 scenes and in bf16 on the timing scenes (host clock around
+    ``predict_mask``, which waits for the mask; peak memory of this
+    process's card).  Writes ``rank<r>.npz`` (the masks) and
+    ``rank<r>.json`` into the spec's directory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from building_detection_tpu_torch.core.config import TilerConfig
+    from building_detection_tpu_torch.infer.engine import TiledPredictor
+    from building_detection_tpu_torch.infer.fused_ensemble import DEFAULT_BATCH_TILES
+    from building_detection_tpu_torch.models.registry import init_model
+    from building_detection_tpu_torch.parallel.mesh import make_mesh
+
+    rank = dist.get_rank()
+    begun = time.perf_counter()
+    base = init_model(TP_INFER_MEMBER, torch.Generator().manual_seed(SEED + 50))
+    f32_scenes, rate_scenes = tile_procs_scenes()
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    index = torch.cuda.current_device()
+    out = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend(), "visible": visible,
+           "card": int(visible.split(",")[index]) if visible else index, "name": torch.cuda.get_device_name(index),
+           "init_s": time.perf_counter() - begun, "layouts": {}}
+    masks = {}
+    for label, (data, model, tp) in spec["layouts"].items():
+        mesh = make_mesh(data=data, model=model)
+        saved = exact_f32()
+        start = time.perf_counter()
+        try:
+            pred = TiledPredictor(copy.deepcopy(base), TilerConfig(), tile_procs_batch(data), torch.float32, mesh=mesh,
+                                  tp=tp)
+            for i, img in enumerate(f32_scenes):
+                masks[f"{label}|f32|{i}"] = pred.predict_mask(img)
+        finally:
+            restore_backends(saved)
+        f32_s = time.perf_counter() - start
+        del pred
+        torch.cuda.empty_cache()
+        pred = TiledPredictor(copy.deepcopy(base), TilerConfig(), DEFAULT_BATCH_TILES // data, torch.bfloat16,
+                              mesh=mesh, tp=tp)
+        start = time.perf_counter()
+        pred.predict_mask(rate_scenes[0])  # warm-up
+        warm_s = time.perf_counter() - start
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        for i, img in enumerate(rate_scenes):
+            masks[f"{label}|bf16|{i}"] = pred.predict_mask(img)
+        secs = time.perf_counter() - start
+        out["layouts"][label] = {
+            "device": str(pred.device), "data_index": mesh.data_index, "model_index": mesh.model_index,
+            "tp": pred.tp, "batch_tiles": pred.batch_tiles,
+            "sharded": sum(1 for m in pred.model.modules() for _ in (getattr(m, "tp", None) or {})),
+            "tiles_per_s": scene_tiles(rate_scenes, TilerConfig()) / secs,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "f32_s": f32_s, "warm_s": warm_s, "bf16_s": secs,
+        }
+        del pred
+        torch.cuda.empty_cache()
+    np.savez(os.path.join(spec["work"], f"rank{rank}.npz"), **masks)
+    with open(os.path.join(spec["work"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def tile_procs_launcher(spec: dict) -> int:
+    """``chip_smoke.py --tile-procs SPEC``: one launcher process of
+    ``[tile_procs]``, two workers running :func:`tile_procs_body`."""
+    from building_detection_tpu_torch.parallel.launch import launch
+
+    launch(tile_procs_body, spec, local_devices=2, coordinator=spec["coordinator"], num_processes=spec["processes"],
+           process_id=spec["pid"], backend=spec["backend"], device_type="cuda")
+    return 0
+
+
+def phase_tile_procs(here: str, work: str, smi: str) -> None:
+    """The per-model predictor over a mesh that spans processes: v3plus
+    through ``TiledPredictor`` in launched workers (:func:`tile_procs_body`),
+    on one card two Gloo workers sharing it, on four cards or more two
+    launchers of two NCCL workers; held in f32 against the one-process
+    predictor here (tile data parallelism bit-equal at the same per-tile
+    forward batch, TP within ``TP_PIXEL_FRAC`` of the pixels), every rank
+    bit-equal to rank 0; bf16 tiles/s and peak memory a rank against one
+    process on one card."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu_torch.core.config import TilerConfig
+    from building_detection_tpu_torch.infer.engine import TiledPredictor
+    from building_detection_tpu_torch.infer.fused_ensemble import DEFAULT_BATCH_TILES
+    from building_detection_tpu_torch.models.registry import init_model
+    from building_detection_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    me, env = os.path.abspath(__file__), port_env(here)
+    cards = torch.cuda.device_count()
+    layouts = tile_procs_layouts(cards)
+    spec = {"layouts": layouts, "work": work}
+    if cards >= 4:
+        form = "two launcher processes of two NCCL workers, on cards 0,1 and 2,3"
+        port = dryrun.free_port()
+        argvs = [["env", f"CUDA_VISIBLE_DEVICES={2 * p},{2 * p + 1}", sys.executable, me, "--tile-procs",
+                  json.dumps({**spec, "backend": "nccl", "processes": 2, "pid": p,
+                              "coordinator": f"127.0.0.1:{port}"})] for p in range(2)]
+    else:
+        form = "one launcher process of two Gloo workers sharing cuda:0"
+        argvs = [[sys.executable, me, "--tile-procs",
+                  json.dumps({**spec, "backend": "gloo", "processes": 1, "pid": 0, "coordinator": None})]]
+    runs = dryrun.run_processes(argvs, env, TILE_PROCS_TIMEOUT_S, cwd=here)
+    launch_s = time.perf_counter() - t0
+    for i, (rc, text) in enumerate(runs):
+        check(rc == 0, f"[tile_procs] launcher process {i} exited {rc}: {text[-4000:]}")
+    world = 4 if cards >= 4 else 2
+    infos, masks = [], []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            infos.append(json.load(f))
+        with np.load(os.path.join(work, f"rank{r}.npz")) as z:
+            masks.append({k: z[k] for k in z.files})
+    for info in infos:
+        check(info["world"] == world and info["card"] == (info["rank"] if cards >= 4 else 0),
+              f"[tile_procs] rank {info['rank']} of {info['world']} sits on card {info['card']}")
+        say("tile_procs", f"rank {info['rank']} of {info['world']} ({info['backend']}) on card {info['card']} "
+                          f"(CUDA_VISIBLE_DEVICES={info['visible']}, {info['name']}): " + "; ".join(
+                              f"{label}: data index {v['data_index']}, model index {v['model_index']}, "
+                              f"{v['sharded']} sharded parameter groups, f32 checks {v['f32_s']:.1f} s, bf16 warm-up "
+                              f"{v['warm_s']:.1f} s, timed {v['bf16_s']:.1f} s" for label, v in info["layouts"].items())
+                          + f"; model built in {info['init_s']:.1f} s")
+    for r in range(1, world):
+        check(sorted(masks[r]) == sorted(masks[0]), f"[tile_procs] rank {r} returned other masks")
+        differ = [k for k in masks[0] if not np.array_equal(masks[r][k], masks[0][k])]
+        check(not differ, f"[tile_procs] rank {r}'s masks differ from rank 0's at {differ}")
+    say("tile_procs", f"{form}: every rank's {len(masks[0])} masks bit-equal to rank 0's ({smi})")
+
+    base = init_model(TP_INFER_MEMBER, torch.Generator().manual_seed(SEED + 50))
+    cfg = TilerConfig()
+    f32_scenes, rate_scenes = tile_procs_scenes()
+    saved = exact_f32()
+    try:
+        want = {}
+        for b in sorted({tile_procs_batch(data) for data, _, _ in layouts.values()}):
+            single = TiledPredictor(copy.deepcopy(base), cfg, b, torch.float32)
+            want[b] = [single.predict_mask(img) for img in f32_scenes]
+            del single
+    finally:
+        restore_backends(saved)
+    torch.cuda.empty_cache()
+    for label, (data, model, tp) in layouts.items():
+        b = tile_procs_batch(data)
+        diffs = [int((masks[0][f"{label}|f32|{i}"] != w).sum()) for i, w in enumerate(want[b])]
+        pixels = sum(w.size for w in want[b])
+        fg = sum(int((w > 0).sum()) for w in want[b]) / pixels
+        gate = f"at most {TP_PIXEL_FRAC * pixels:.0f}" if tp else "0"
+        say("tile_procs", f"{TP_INFER_MEMBER} f32, TF32 off, deterministic cuDNN, {label} ({form}), batch_tiles={b} a "
+                          f"data row, {TILE_DP_SCENES} scenes: {diffs} of {pixels} pixels differ from one process at "
+                          f"batch_tiles={b} (gate {gate}; one process {fg:.1%} foreground) ({smi})")
+        if tp:
+            check(sum(diffs) <= TP_PIXEL_FRAC * pixels,
+                  f"[tile_procs] f32 {label}: {diffs} pixels differ from one process")
+        else:
+            check(sum(diffs) == 0, f"[tile_procs] f32 {label}: {diffs} pixels differ from one process")
+
+    single = TiledPredictor(copy.deepcopy(base), cfg, DEFAULT_BATCH_TILES, torch.bfloat16)
+    single.predict_mask(rate_scenes[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    one = [single.predict_mask(img) for img in rate_scenes]
+    tiles = scene_tiles(rate_scenes, cfg)
+    rate = tiles / (time.perf_counter() - start)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del single, base
+    torch.cuda.empty_cache()
+    result = {"form": form, "one_process": {"tiles_per_s": rate, "peak_gib": peak}, "layouts": {}}
+    for label in layouts:
+        diff = sum(int((masks[0][f"{label}|bf16|{i}"] != w).sum()) for i, w in enumerate(one))
+        ranks = [info["layouts"][label] for info in infos]
+        result["layouts"][label] = {"tiles_per_s": [v["tiles_per_s"] for v in ranks],
+                                    "peak_gib": [v["peak_gib"] for v in ranks], "batch_tiles": ranks[0]["batch_tiles"],
+                                    "pixels_differing_from_one_process": diff}
+        per_rank = "; ".join(f"rank {r} {v['tiles_per_s']:.2f} tiles/s, peak {v['peak_gib']:.3f} GiB"
+                             for r, v in enumerate(ranks))
+        say("tile_procs", f"{TP_INFER_MEMBER} bf16 {label}: {tiles} tiles in {TILE_PROCS_RATE_SCENES} "
+                          f"{TP_SCENE}x{TP_SCENE} scenes, batch_tiles={ranks[0]['batch_tiles']} a chunk: {per_rank}"
+                          + f" (host clock after a warm-up scene); pixels differing from one process {diff} (not gated)"
+                            f" ({smi})")
+    say("tile_procs", f"one process on one card, bf16, batch_tiles={DEFAULT_BATCH_TILES}: {rate:.2f} tiles/s, peak "
+                      f"{peak:.3f} GiB ({smi})")
+    print(TILE_PROCS_RESULT + json.dumps(result), flush=True)
+    say("tile_procs", f"launchers {launch_s:.1f} s, phase {time.perf_counter() - t0:.1f} s ({smi})")
+
+
 def phase_tp_infer(smi: str) -> None:
     """Channel TP in inference: ``TiledPredictor(tp=True)`` over ``cuda:0``
     twice (``data=1 x model=2``), and on four cards also ``model=4`` and
@@ -2433,6 +2671,8 @@ def main() -> int:
         dp_launches, dp_plain_launches = phase_dp(here, work, smi)
     with tempfile.TemporaryDirectory(dir=here) as work:
         hybrid_launches, hybrid_plain_launches = phase_hybrid(here, work, smi)
+    with tempfile.TemporaryDirectory(dir=here) as work:
+        phase_tile_procs(here, work, smi)
     phase_tp_infer(smi)
     with tempfile.TemporaryDirectory(dir=here) as work:
         tp_launches, tp_plain_launches = phase_tp_train(here, work, smi)
@@ -2476,6 +2716,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--hybrid-lib"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(hybrid_lib(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--tile-procs"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(tile_procs_launcher(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--enqueue-probe"]:
         sys.path.insert(0, os.getcwd())
         sys.exit(enqueue_probe())

@@ -104,8 +104,11 @@ def test_make_mesh_over_local_devices():
 def test_several_local_devices_under_a_process_group_are_refused(monkeypatch):
     """Several devices in a process under a process group are refused with
     what to run instead (a worker a device, ``parallel/launch.py``); over a
-    mesh that spans processes the fused predictor runs on this rank's device
-    (``test_torch_hybrid.py`` runs it), and ``TiledPredictor`` refuses it."""
+    mesh that spans processes the predictors run on this rank's device
+    (``test_torch_hybrid.py`` runs the fused one, ``test_torch_tile_procs.py``
+    ``TiledPredictor``): it builds there with no collective at ``data=2,
+    model=1`` when the mesh has no group, and refuses ``tp=True`` on a model
+    axis with no model group.  ``mesh_devices`` still refuses such a mesh."""
     monkeypatch.setattr(pmesh.dist, "is_initialized", lambda: True)
     monkeypatch.setattr(pmesh.dist, "get_world_size", lambda: 2)
     monkeypatch.setattr(pmesh.dist, "get_rank", lambda: 0)
@@ -115,9 +118,12 @@ def test_several_local_devices_under_a_process_group_are_refused(monkeypatch):
     spans = pmesh.Mesh(2, 1, 0, 2, torch.device("cpu"))
     assert pmesh.predictor_devices(spans) == (torch.device("cpu"),)
     assert pmesh.predictor_devices(pmesh.Mesh(2, 1, 1, 2), "cpu") == (torch.device("cpu"),)
-    with pytest.raises(NotImplementedError, match="spans 2 processes: over processes only the fused predictor"):
-        TiledPredictor(TinyMember(), CFG, 2, torch.float32, mesh=spans)
-    with pytest.raises(NotImplementedError, match="spans 2 processes"):
+    pred = TiledPredictor(TinyMember(), CFG, 2, torch.float32, mesh=spans)  # no process group exists here
+    assert pred.device == torch.device("cpu") and pred.batch_tiles == 2 * 2 and not pred.tp
+    assert list(pred.replicas) == [torch.device("cpu")] and next(pred.model.parameters()).dtype == torch.float32
+    with pytest.raises(ValueError, match="channel TP over processes at model=2 needs the mesh's model group"):
+        TiledPredictor(TinyMember(), CFG, 2, torch.float32, mesh=pmesh.Mesh(1, 2, 0, 2, torch.device("cpu")), tp=True)
+    with pytest.raises(NotImplementedError, match="spans 2 processes and each rank drives one device: rank_device"):
         pmesh.mesh_devices(spans)
 
 

@@ -264,6 +264,49 @@ def test_device_prefetch_on_cpu():
         next(it)
 
 
+# The streamed fit's pipes (bdt-train's prefetch feeding the trainer's
+# device_prefetch) stopped early over an endless stream, the process ending
+# at once while the upstream worker runs GIL-releasing torch ops.
+EXIT_WITH_PIPES_RUNNING = """
+import numpy as np, torch
+from building_detection_tpu_torch.data.dataset import prefetch
+from building_detection_tpu_torch.data.prefetch import device_prefetch
+
+torch.set_num_threads(1)
+a = torch.randn(300, 300)
+
+def endless():
+    while True:
+        for _ in range(20):
+            torch.mm(a, a)
+        yield np.zeros((2, 4, 4, 3), np.uint8), np.zeros((2, 4, 4), np.uint8)
+
+def fit():
+    batches = device_prefetch(prefetch(endless()), "cpu")
+    for _ in range(3):
+        next(batches)
+
+fit()
+"""
+
+
+def test_a_stopped_pipe_joins_its_workers_before_exit():
+    """A worker thread left running at interpreter exit inside a torch op
+    that released the interpreter lock aborts the process ("terminate called
+    without an active exception", SIGABRT): a rank of the streamed
+    ``bdt-train`` did so after its last epoch.  Closing a pipe joins its
+    worker, so the process exits 0."""
+    import subprocess
+    import sys
+
+    from building_detection_tpu_torch.parallel import dryrun
+
+    for _ in range(3):
+        run = subprocess.run([sys.executable, "-c", EXIT_WITH_PIPES_RUNNING], capture_output=True, text=True,
+                             env=dryrun.port_env({"OMP_NUM_THREADS": "1"}), timeout=120)
+        assert run.returncode == 0 and "terminate called" not in run.stderr, (run.returncode, run.stderr[-2000:])
+
+
 def test_callbacks(tmp_path):
     pytest.importorskip("PIL")
     imgs, labs = tiny_data(14, n=8)
