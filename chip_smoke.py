@@ -105,11 +105,14 @@ default device (the card):
 * ``[morph]``: ``majority_vote`` over five 4096x4096 masks and
   ``fill_holes`` on a 1024x1024 mask with holes on the card, bit-equal to
   the CPU, with their times and ``fill_holes``' grow steps.
-* ``[learn]``: each of the five members learns, by the JAX package's
-  learning-smoke recipe (``train/learn_smoke.py``: synthetic rectangles,
+* ``[learn]``: each of the five members learns, in a process of its own,
+  the five side by side (``chip_smoke.py --learn-child NAME``), by the JAX
+  package's learning-smoke recipe (``train/learn_smoke.py``: synthetic rectangles,
   300 bf16 steps at 128x128 for res34, scse and hrnet, 150 for v3plus and
-  bam, staged chunks of 50, warmup-cosine from lr 5e-4), to a held-out
-  IoU above 0.5 with the eval-mode model; then one step of each member
+  bam, staged chunks of 50, warmup-cosine from lr 5e-4; seed 0), to a
+  held-out IoU above 0.5 with the eval-mode model, and each line gives
+  the held-out IoU with the batch's own BN statistics beside it (the
+  moving statistics' lag is the difference); then one step of each member
   at that size are profiled under ``utils/profiling.py::device_trace``:
   device ops and device milliseconds a step, and the busy share against
   the unprofiled step's CUDA-event time.
@@ -202,6 +205,8 @@ MORPH_VOTE = (5, 4096, 4096)      # majority_vote: five 4096^2 masks
 MORPH_FILL = 1024                 # fill_holes: a 1024^2 mask with holes
 LEARN_WARMUP_STEPS = 1            # [learn] profile: bf16 steps at the recipe's 128^2 before the timed ones
 LEARN_PROFILE_STEPS = 1           # ... steps timed by CUDA events, then as many under device_trace
+LEARN_TIMEOUT_S = 900             # the five [learn] members' processes, side by side
+LEARN_RESULT = "learn result "
 HYBRID_MEMBER = "res34"           # the [hybrid] member: its BN statistics reduce over every rank
 HYBRID_PX = 128                   # [hybrid]: 16 samples of 128^2, global batch 8, 2 f32 steps through bdt-train
 HYBRID_SAMPLES = 16
@@ -2594,39 +2599,68 @@ def learn_profile(name: str, trace_dir: str, smi: str) -> int:
     return launched
 
 
+def learn_child(name: str) -> int:
+    """One member of the ``[learn]`` phase (``chip_smoke.py --learn-child
+    NAME``): trains it by the recipe of ``train/learn_smoke.py`` on the card,
+    prints the smoke's lines, then one ``learn result`` JSON line with its
+    edge-kernel launches."""
+    from building_detection_tpu_torch.kernels import edge_weights as K
+    from building_detection_tpu_torch.train import learn_smoke as LS
+
+    before = K.edge_weight_maps.launches
+    r = LS.run_one(name, log=lambda line: print(line.strip(), flush=True))
+    print(LEARN_RESULT + json.dumps({**r, "passed": bool(r["passed"]),
+                                     "launches": K.edge_weight_maps.launches - before}), flush=True)
+    return 0
+
+
 def phase_learn(here: str, smi: str) -> int:
     """Every member learns by the recipe of ``train/learn_smoke.py`` on the
-    card (held-out IoU > 0.5), then the 128^2 profile of each.  Returns the
-    edge-kernel launches: one a step, one a held-out evaluation."""
+    card (held-out IoU > 0.5), the five side by side, each in a process of
+    its own (the steps are host-paced, so a member's host time is its own);
+    then the 128^2 profile of each, one at a time.  Returns the edge-kernel
+    launches: one a step, two for the held-out batch (eval mode, and BN on
+    the batch's own statistics)."""
     import tempfile
 
     import torch
 
-    from building_detection_tpu_torch.kernels import edge_weights as K
+    from building_detection_tpu_torch.parallel import dryrun
     from building_detection_tpu_torch.train import learn_smoke as LS
 
     t0 = time.perf_counter()
+    me = os.path.abspath(__file__)
+    runs = dryrun.run_processes([[sys.executable, me, "--learn-child", name] for name in LS.RECIPES],
+                                port_env(here), LEARN_TIMEOUT_S, cwd=here)
     launches = 0
-    for name, (steps, hw, lr) in LS.RECIPES.items():
-        before = K.edge_weight_maps.launches
-        r = LS.run_one(name, log=lambda line: say("learn", line.strip()))
-        launched = K.edge_weight_maps.launches - before
+    for (name, (steps, hw, lr)), (rc, text) in zip(LS.RECIPES.items(), runs):
+        check(rc == 0, f"[learn] {name}: its process exited {rc}: {text[-4000:]}")
+        lines = text.splitlines()
+        for line in lines:
+            if not line.startswith(LEARN_RESULT):
+                say("learn", line.strip())
+        r = json.loads(next(ln for ln in lines if ln.startswith(LEARN_RESULT))[len(LEARN_RESULT):])
+        launched = r["launches"]
         say("learn", f"{name}: held-out IoU {r['IoU']:.4f} PA {r['PA']:.4f} F1 {r['F1_score']:.4f} (gate IoU > "
-                     f"{LS.IOU_GATE}); last train loss {r['train_loss']:.4f}; {r['steps']} bf16 steps at {hw}x{hw}, "
+                     f"{LS.IOU_GATE}), {r['batch_stats_IoU']:.4f} with the batch's own BN statistics; last train "
+                     f"loss {r['train_loss']:.4f}, IoU {r['train_IoU']:.4f}; seed {r['seed']}, {r['steps']} "
+                     f"{r['dtype']} steps at {hw}x{hw}, "
                      f"lr {lr}, in {r['seconds']:.1f} s, {r['step_ms']:.2f} ms a step (host clock, chunks after "
-                     f"the first); edge-kernel launches {launched} ({smi})")
+                     f"the first, the five members side by side); edge-kernel launches {launched} ({smi})")
         check(math.isfinite(r["train_loss"]), f"[learn] {name}: non-finite loss")
         check(r["IoU"] > LS.IOU_GATE, f"[learn] {name} did not learn: held-out IoU {r['IoU']:.4f}")
-        check(launched == steps + 1, f"[learn] {name}: {launched} edge-kernel launches in {steps} steps and one eval")
+        check(launched == steps + 2, f"[learn] {name}: {launched} edge-kernel launches in {steps} steps and two "
+                                     "held-out evaluations")
         launches += launched
-        torch.cuda.empty_cache()
     learn_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(dir=here) as trace_dir:
         for name in LS.RECIPES:
             launches += learn_profile(name, trace_dir, smi)
         traces = os.listdir(trace_dir)
         check(len(traces) == len(LS.RECIPES), f"[learn] device_trace wrote {traces}")
-    say("learn", f"all five learned in {learn_s:.1f} s; profiles {time.perf_counter() - t0 - learn_s:.1f} s")
+    torch.cuda.empty_cache()
+    say("learn", f"all five learned in {learn_s:.1f} s side by side; profiles "
+                 f"{time.perf_counter() - t0 - learn_s:.1f} s")
     return launches
 
 
@@ -2722,6 +2756,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--enqueue-probe"]:
         sys.path.insert(0, os.getcwd())
         sys.exit(enqueue_probe())
+    if sys.argv[1:2] == ["--learn-child"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(learn_child(sys.argv[2]))
     if sys.argv[1:2] == ["--exact-eval"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(exact_eval_child(sys.argv[2:]))

@@ -15,6 +15,16 @@
 * ``run_one`` returns its metrics and prints the ``PASS``/``FAIL`` line, and
   ``main`` exits 0 with ``LEARNING OK`` when every member passes and 1
   otherwise, as the JAX script does.
+* ``run_one``'s ``seed``, ``dtype`` and ``init`` (``--seed``, ``--dtype``):
+  the weights before the first step are the default ``Trainer``'s, another
+  seed's, or exactly the given JAX package's (``init``, or ``--init`` with
+  the JAX package's ``.npz``); ``f32`` makes every layer compute in f32;
+  ``main`` refuses an unknown dtype and ``--init`` with several members.  ``eval_batch_stats``
+  gives the metrics of the train-mode forward (the training step's, before
+  its update) and moves no moving statistic and not the step count.
+* ``block_ceiling_iou`` is the best IoU of any mask constant on tiles
+  (against all 256 such masks of a small case); bam's output is constant
+  on 4x4 tiles, and its held-out IoUs stay under that ceiling.
 * ``device_trace`` writes a trace of a CPU op and is a no-op for ``None``
   and ``""``.
 """
@@ -29,9 +39,13 @@ import pytest
 import torch
 
 from building_detection_tpu.core.config import TrainConfig as JaxTrainConfig
+from building_detection_tpu.models.registry import init_model
 from building_detection_tpu.parallel.mesh import make_mesh
+from building_detection_tpu.train import checkpoint as jax_checkpoint
 from building_detection_tpu.train.trainer import Trainer as JaxTrainer
-from building_detection_tpu_torch.core.module import load_jax_variables
+from building_detection_tpu_torch.core.module import init_layers, jax_variables, load_jax_variables
+from building_detection_tpu_torch.models.registry import build_model
+from building_detection_tpu_torch.nn.layers import KerasLayer
 from building_detection_tpu_torch.train import learn_smoke
 from building_detection_tpu_torch.train.trainer import Trainer
 from building_detection_tpu_torch.utils.profiling import device_trace
@@ -45,6 +59,7 @@ torch.set_num_threads(2)
 LOSS_RTOL = 1e-4
 METRIC_ATOL = 1e-3
 SMALL = (3, 64, 5e-4)  # steps, px, lr: a CPU-sized recipe
+ONE_STEP = (1, 64, 5e-4)
 
 
 def test_recipes_equal_the_jax_script():
@@ -114,6 +129,8 @@ LINE = re.compile(r"^scse: (PASS|FAIL) held-out IoU=[\d.]+ PA=[\d.]+ F1=[\d.]+ \
 def test_run_one_returns_metrics_and_prints_the_verdict(capsys):
     out = learn_smoke.run_one("scse", device="cpu", recipe=SMALL)
     assert {"IoU", "PA", "F1_score", "MIoU", "loss", "train_loss", "seconds", "steps", "step_ms", "passed"} <= set(out)
+    assert {"batch_stats_IoU", "batch_stats_loss", "train_IoU", "ceiling_IoU", "seed", "dtype"} <= set(out)
+    assert out["seed"] == 0 and out["dtype"] == "bf16" and out["ceiling_IoU"] == 1.0
     assert out["steps"] == 3 and out["seconds"] > 0 and out["step_ms"] > 0
     assert out["passed"] == (out["IoU"] > 0.5)
     assert all(np.isfinite(out[k]) for k in ("IoU", "PA", "F1_score", "loss", "train_loss"))
@@ -136,6 +153,140 @@ def test_main_refuses_an_unknown_member(capsys):
     with pytest.raises(SystemExit) as e:
         learn_smoke.main(["--device", "cpu", "nosuch"])
     assert e.value.code == 2 and "nosuch" in capsys.readouterr().err
+
+
+@pytest.fixture
+def first_steps(monkeypatch):
+    """Each ``train_staged`` call's trainer as it enters: its variables (JAX
+    layout), its layers' compute dtypes and its step count."""
+    seen = []
+    real = learn_smoke.train_staged
+
+    def spy(tr, *args, **kwargs):
+        dtypes = {m.compute_dtype for m in tr.model.modules() if isinstance(m, KerasLayer)}
+        variables = tuple({k: v.copy() for k, v in tree.items()} for tree in jax_variables(tr.model))
+        seen.append((variables, dtypes, tr.step))
+        return real(tr, *args, **kwargs)
+
+    monkeypatch.setattr(learn_smoke, "train_staged", spy)
+    return seen
+
+
+def assert_variables_equal(got, want):
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+def test_run_one_seeds_draw_the_trainers_weights(first_steps):
+    steps, hw, lr = ONE_STEP
+    default = Trainer("scse", learn_smoke.learn_config(hw, lr), steps_per_epoch=steps, device="cpu")
+    default = jax_variables(default.model)
+    outs = [learn_smoke.run_one("scse", device="cpu", recipe=ONE_STEP, log=lambda s: None, **kw)
+            for kw in ({}, {"seed": 1})]
+    (v0, _, step0), (v1, _, _) = first_steps
+    assert step0 == 0 and [o["seed"] for o in outs] == [0, 1]
+    assert_variables_equal(v0, default)
+    assert any(not np.array_equal(v0[0][k], v1[0][k]) for k in v0[0])
+
+
+def test_run_one_starts_from_the_given_jax_weights(first_steps):
+    steps, hw, lr = ONE_STEP
+    params, state = init_model("scse", jax.random.key(7), (1, hw, hw, 3))
+    init = tuple({k: np.asarray(v) for k, v in jax.device_get(t).items()} for t in (params, state))
+    learn_smoke.run_one("scse", device="cpu", recipe=ONE_STEP, log=lambda s: None, init=init)
+    (got, _, step), = first_steps
+    assert step == 0
+    assert_variables_equal(got, init)
+
+
+def test_main_init_starts_from_a_checkpoint(monkeypatch, capsys, first_steps, tmp_path):
+    steps, hw, lr = ONE_STEP
+    params, state = init_model("scse", jax.random.key(11), (1, hw, hw, 3))
+    init = tuple({k: np.asarray(v) for k, v in jax.device_get(t).items()} for t in (params, state))
+    path = str(tmp_path / "scse_init.npz")
+    jax_checkpoint.save_variables(path, *init)
+    monkeypatch.setattr(learn_smoke, "RECIPES", {"scse": ONE_STEP})
+    monkeypatch.setattr(learn_smoke, "IOU_GATE", -1.0)
+    assert learn_smoke.main(["--device", "cpu", "--init", path, "scse"]) == 0
+    (got, _, _), = first_steps
+    assert_variables_equal(got, init)
+    assert "scse: the given weights, bf16: held-out IoU " in capsys.readouterr().out
+
+
+def test_main_init_takes_one_member(capsys, tmp_path):
+    with pytest.raises(SystemExit) as e:
+        learn_smoke.main(["--device", "cpu", "--init", str(tmp_path / "x.npz"), "scse", "res34"])
+    assert e.value.code == 2 and "--init takes one member" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,dtype", [([], torch.bfloat16), (["--dtype", "f32"], torch.float32)],
+                         ids=["default_bf16", "f32"])
+def test_main_dtype_sets_the_compute_dtype(monkeypatch, capsys, first_steps, flag, dtype):
+    monkeypatch.setattr(learn_smoke, "RECIPES", {"scse": ONE_STEP})
+    monkeypatch.setattr(learn_smoke, "IOU_GATE", -1.0)
+    assert learn_smoke.main(["--device", "cpu", "--seed", "3"] + flag) == 0
+    (_, dtypes, _), = first_steps
+    assert dtypes == {dtype}
+    name = next(k for k, v in learn_smoke.DTYPES.items() if v == dtype)
+    assert f"scse: seed 3, {name}: held-out IoU " in capsys.readouterr().out
+
+
+def test_main_refuses_an_unknown_dtype(capsys):
+    with pytest.raises(SystemExit) as e:
+        learn_smoke.main(["--device", "cpu", "--dtype", "f16", "scse"])
+    assert e.value.code == 2 and "f16" in capsys.readouterr().err
+
+
+def test_batch_stats_readout_moves_no_state():
+    """res34 (BN throughout), f32, after one step so the moving statistics
+    are no longer their initial values: the readout equals the metrics of
+    the next training step's forward on the same batch (train mode, taken
+    before that step's update) and leaves the state and step alone."""
+    steps, hw, lr = 2, 64, 5e-4
+    tr = Trainer("res34", learn_smoke.learn_config(hw, lr), steps_per_epoch=steps, device="cpu")
+    imgs, labs = learn_smoke.make_dataset(np.random.RandomState(5), 2 * learn_smoke.BATCH, hw)
+    tr.train_on_batch(imgs[: learn_smoke.BATCH], labs[: learn_smoke.BATCH])
+    before, step = jax_variables(tr.model), tr.step
+    got = learn_smoke.eval_batch_stats(tr, imgs[learn_smoke.BATCH :], labs[learn_smoke.BATCH :])
+    assert_variables_equal(jax_variables(tr.model), before)
+    assert tr.step == step == 1
+    eval_mode = tr.eval_on_batch(imgs[learn_smoke.BATCH :], labs[learn_smoke.BATCH :])
+    assert got["loss"] != eval_mode["loss"]
+    want = tr.train_on_batch(imgs[learn_smoke.BATCH :], labs[learn_smoke.BATCH :])
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-6 * max(1.0, abs(want[k])), (k, got[k], want[k])
+
+
+def test_block_ceiling_iou_is_the_best_tiled_mask():
+    """Against every mask constant on 4x4 tiles of two 8x8 labels (2**8)."""
+    labels = np.where(np.random.RandomState(3).rand(2, 8, 8) < 0.45, 255, 0).astype(np.uint8)
+    g = labels == 255
+    best = 0.0
+    for bits in range(1, 2 ** 8):
+        tiles = np.array([(bits >> i) & 1 for i in range(8)], bool).reshape(2, 2, 2)
+        mask = tiles.repeat(4, axis=1).repeat(4, axis=2)
+        tp = np.sum(mask & g)
+        best = max(best, tp / (mask.sum() + g.sum() - tp))
+    assert learn_smoke.block_ceiling_iou(labels, 4) == pytest.approx(best, rel=1e-12)
+    assert learn_smoke.block_ceiling_iou(labels, 1) == 1.0
+
+
+def test_bam_output_is_constant_on_its_block_and_under_the_ceiling(capsys):
+    (block,) = set(learn_smoke.OUTPUT_BLOCK.values())
+    model = init_layers(build_model("bam"), torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(0).uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        probs = model(x).numpy()
+    tiles = probs.reshape(1, 64 // block, block, 64 // block, block, 2)
+    np.testing.assert_array_equal(tiles, np.broadcast_to(tiles[:, :, :1, :, :1], tiles.shape))
+    out = learn_smoke.run_one("bam", device="cpu", recipe=ONE_STEP, dtype=torch.float32)
+    assert out["ceiling_IoU"] == learn_smoke.block_ceiling_iou(learn_smoke.held_out(64)[1], block) < 0.95
+    assert out["IoU"] <= out["ceiling_IoU"] and out["batch_stats_IoU"] <= out["ceiling_IoU"]
+    assert f"bam: its output is constant on {block}x{block} tiles; the best such mask scores held-out IoU " in \
+        capsys.readouterr().out
 
 
 def test_device_trace_writes_a_trace(tmp_path):
