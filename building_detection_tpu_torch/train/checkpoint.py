@@ -11,8 +11,10 @@ wrote.
 
 The Keras ``.h5`` half (:func:`import_h5_weights`, :func:`export_h5_weights`)
 works on the same flat JAX-layout dicts, so a file either package writes
-imports in the other.  ``h5py`` is imported inside those functions: without
-it they raise ``ImportError`` and nothing else changes.
+imports in the other.  It reads and writes the files through
+:mod:`utils.hdf5`, with numpy alone: it reads what h5py writes (its default
+format and ``libver='latest'``) and writes h5py's default format, the one
+TF-Keras reads.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import os
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+
+from building_detection_tpu_torch.utils import hdf5
 
 SEP = "||"  # flat-key separator inside npz archives
 
@@ -127,14 +131,6 @@ def _decode(n):
     return n.decode() if isinstance(n, bytes) else n
 
 
-def _h5py():
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(f"Keras .h5 weights need the h5py package, which is not installed ({e})") from e
-    return h5py
-
-
 @dataclasses.dataclass
 class H5ImportReport:
     """What an ``.h5`` import did.  ``name_pass_rejected`` says why the
@@ -175,14 +171,13 @@ def _read_h5_entries(h5_path: str) -> List[Tuple[str, str, str, np.ndarray]]:
     weights file: layers in the ``layer_names`` attribute's order (Keras
     writes ``model.layers`` order), weights in each layer's ``weight_names``
     order.  Depthwise kernels come back in the JAX layout."""
-    h5py = _h5py()
     entries = []
-    with h5py.File(h5_path, "r") as f:
+    with hdf5.File(h5_path) as f:
         root = f["model_weights"] if "model_weights" in f else f
         for lname in (_decode(n) for n in root.attrs.get("layer_names", list(root.keys()))):
             g = root[lname]
             for wn in (_decode(w) for w in g.attrs.get("weight_names", [])):
-                arr = np.asarray(g[wn])
+                arr = np.asarray(g[wn][()])
                 suffix = wn.rsplit("/", 1)[-1].split(":")[0]
                 if suffix == "depthwise_kernel" and arr.ndim == 4:
                     # Keras (kh, kw, in_ch, 1) -> JAX (kh, kw, 1, in_ch)
@@ -299,7 +294,6 @@ def export_h5_weights(
     for a zoo model.  Without it the groups keep construction order, which
     :func:`import_h5_weights` reads either way.
     """
-    h5py = _h5py()
     layer_weights: Dict[str, list] = {}
     for key, arr in list(params.items()) + list(state.items()):
         layer_weights.setdefault(key.rsplit("/", 1)[0], []).append((key, arr))
@@ -315,7 +309,7 @@ def export_h5_weights(
             )
         layer_weights = {ln: layer_weights[ln] for ln in layer_order}
 
-    with h5py.File(path, "w") as f:
+    with hdf5.Writer(path) as f:
         f.attrs["layer_names"] = [ln.encode() for ln in layer_weights]
         f.attrs["backend"] = b"tensorflow"
         # without keras_version, tf_keras reads the file as Keras 1 and

@@ -41,9 +41,11 @@ default device (the card):
   ephemeral port (``/health``, three ``POST /photo`` sent with the port's
   ``bdt-client`` ``detect``, the client CLI once, SIGTERM drains and exits
   0) and ``bdt-augment`` (host only);
-* Keras ``.h5``: without ``h5py`` a ``Pipeline`` over an ``.h5`` raises an
-  ``ImportError`` naming it; with it, ``bdt-convert`` both ways and a
-  ``Pipeline`` from the ``.h5`` equal to the ``.npz`` run;
+* Keras ``.h5`` with the port's own HDF5 reader and writer (no ``h5py``):
+  the five members' weights written under the reference deployment's file
+  names and read back bit for bit (MiB/s each way), ``Pipeline`` over them
+  equal to the ``.npz`` run (bf16 masks), ``Trainer.load_weights`` of an
+  ``.h5`` equal to that of its ``.npz``, ``bdt-convert`` both ways;
 * training: ``Trainer`` steps for each of the five members on 512x512 tiles
   at batch 8, in f32 and bf16, with ``make_targets`` (and so the kernel)
   inside every step; one f32 step per member held against the same step on
@@ -126,6 +128,7 @@ twin, its time, the twin's, its bound and share of it; the last line is
 from __future__ import annotations
 
 import copy
+import importlib.util
 import json
 import math
 import os
@@ -217,6 +220,8 @@ TILE_PROCS_RESULT = "tile_procs result "
 HYBRID_LOSS_RTOL = 1e-5           # (a) two processes x 2 against (b) one process x 4
 HYBRID_PARAM_ATOL = 1e-5
 HYBRID_TIMEOUT_S = 300
+# the [h5] phase's files: the reference deployment's names (infer/pipeline.py::discover_weights)
+H5_FILES = {"res34": "resnet34.h5", "hrnet": "hrnet.h5", "v3plus": "deep.h5", "scse": "scse.h5", "bam": "bam.h5"}
 
 
 class SmokeFailure(RuntimeError):
@@ -1091,45 +1096,108 @@ def phase_int8(pipe):
 
 
 def phase_h5(here: str, work: str):
-    """Keras ``.h5`` weights on this machine.  Without ``h5py``, a
-    ``Pipeline`` over an ``.h5`` must raise an ``ImportError`` that names
-    it.  With it: ``bdt-convert`` .npz -> .h5 -> .npz gives the weights back
-    bit for bit, and a one-member ``Pipeline`` from the ``.h5`` gives the
-    ``.npz`` run's mask."""
+    """Keras ``.h5`` weights on this machine, which has no ``h5py``: the port
+    reads and writes them itself (``utils/hdf5.py``).  The five members'
+    seeded f32 weights are written in Keras' layer order under the reference
+    deployment's file names and read back bit for bit;
+    ``Pipeline(weights=discover_weights(dir))`` over the ``.h5`` files gives
+    the bf16 masks of the same weights loaded from ``.npz`` (deterministic
+    cuDNN); ``Trainer.load_weights`` of an ``.h5`` equals that of its
+    ``.npz``; ``bdt-convert`` .npz -> .h5 -> .npz, as subprocesses, gives the
+    weights back bit for bit.  ``h5py`` is never imported, and the phase
+    launches no kernel."""
     import numpy as np
     import torch
 
+    from building_detection_tpu_torch.core.config import TrainConfig
     from building_detection_tpu_torch.core.module import jax_variables
-    from building_detection_tpu_torch.infer.pipeline import Pipeline
-    from building_detection_tpu_torch.models.registry import init_model
-    from building_detection_tpu_torch.train.checkpoint import load_variables, save_variables
+    from building_detection_tpu_torch.infer.pipeline import Pipeline, discover_weights
+    from building_detection_tpu_torch.kernels import edge_weights as K
+    from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER, init_model, keras_layer_order
+    from building_detection_tpu_torch.train.checkpoint import (export_h5_weights, import_h5_weights,
+                                                               load_variables, save_variables)
+    from building_detection_tpu_torch.train.trainer import Trainer
 
-    npz = os.path.join(work, "scse.npz")
-    save_variables(npz, *jax_variables(init_model("scse", torch.Generator().manual_seed(SEED + 13))))
-    h5 = os.path.join(work, "scse.h5")
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        try:
-            Pipeline({"scse": h5}, models=("scse",), compute_dtype=torch.bfloat16)
-        except ImportError as e:
-            check("h5py" in str(e), f"the ImportError does not name h5py: {e}")
-            say("h5", f"h5py absent on this machine: Pipeline over an .h5 raises ImportError ({e}); the bdt-convert "
-                      f"round trip and the .h5 Pipeline were not run (they need h5py)")
-            return
-        raise SmokeFailure("Pipeline over an .h5 did not raise without h5py")
-    _, to_h5 = run_cli(here, "convert", ["scse", npz, h5], "bdt-convert npz->h5")
-    back = os.path.join(work, "back.npz")
-    _, to_npz = run_cli(here, "convert", ["scse", h5, back], "bdt-convert h5->npz")
-    (p0, s0, *_), (p1, s1, *_) = load_variables(npz), load_variables(back)
-    check(set(p0) == set(p1) and all(np.array_equal(p0[k], p1[k]) for k in p0) and set(s0) == set(s1),
-          "bdt-convert npz -> h5 -> npz changed the weights")
+    def same(got, want, what):
+        check(list(got) == list(want), f"{what}: the keys differ")
+        for k in want:
+            check(got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), f"{what}: {k} differs")
+
+    t_phase = time.perf_counter()
+    launches = K.edge_weight_maps.launches
+    h5_dir, npz_dir = os.path.join(work, "h5"), os.path.join(work, "npz")
+    os.makedirs(h5_dir)
+    os.makedirs(npz_dir)
+    weights = {name: jax_variables(init_model(name, torch.Generator().manual_seed(SEED + 20 + i)))
+               for i, name in enumerate(ENSEMBLE_ORDER)}
+    paths = {name: os.path.join(h5_dir, H5_FILES[name]) for name in ENSEMBLE_ORDER}
+    t0 = time.perf_counter()
+    for name, (params, state) in weights.items():
+        export_h5_weights(paths[name], params, state, layer_order=keras_layer_order(name))
+    write_s = time.perf_counter() - t0
+    mib = sum(os.path.getsize(p) for p in paths.values()) / 2**20
+    t0 = time.perf_counter()
+    back = {name: import_h5_weights(paths[name], *({k: np.zeros_like(v) for k, v in d.items()} for d in weights[name]))
+            for name in ENSEMBLE_ORDER}
+    read_s = time.perf_counter() - t0
+    for name, (params, state) in weights.items():
+        got_p, got_s, report = back[name]
+        check(report.complete and report.matched_by_name == len(params) + len(state),
+              f"{name}: the .h5 import was not complete by name: {report.summary()}")
+        same(got_p, params, f"{name} .h5 params")
+        same(got_s, state, f"{name} .h5 state")
+        save_variables(os.path.join(npz_dir, f"{name}.npz"), params, state)
+    del back
+    check(discover_weights(h5_dir) == paths, f"discover_weights found {discover_weights(h5_dir)}")
+    layers = {name: len(keras_layer_order(name)) for name in ENSEMBLE_ORDER}
+    say("h5", f"wrote the five members' .h5 ({', '.join(H5_FILES[n] for n in ENSEMBLE_ORDER)}; {mib:.1f} MiB, "
+              f"{max(layers.values())} layer groups at most) in {write_s:.2f} s ({mib / write_s:.0f} MiB/s), "
+              f"imported them back in {read_s:.2f} s ({mib / read_s:.0f} MiB/s), bit for bit")
+
     img = scenes()[0]
-    masks = [Pipeline({"scse": path}, models=("scse",), compute_dtype=torch.bfloat16).ensemble.predict_masks(img)
-             ["scse"] for path in (npz, h5)]
-    check(np.array_equal(masks[0], masks[1]), "the .h5 Pipeline's mask differs from the .npz one's")
-    say("h5", f"bdt-convert npz -> h5 {to_h5:.1f} s, h5 -> npz {to_npz:.1f} s, weights back bit for bit; "
-              f"Pipeline from the .h5 equals the .npz run on a 1024x1024 scene")
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        masks = []
+        for d in (npz_dir, h5_dir):
+            pipe = Pipeline(weights=discover_weights(d), compute_dtype=torch.bfloat16, seed=SEED)
+            masks.append(pipe.ensemble.predict_masks(img))
+            del pipe
+            torch.cuda.empty_cache()
+        for name in ENSEMBLE_ORDER:
+            check(np.array_equal(masks[0][name], masks[1][name]), f"{name}: the .h5 Pipeline's mask differs")
+        member = "hrnet"
+        trained = []
+        for path in (paths[member], os.path.join(npz_dir, f"{member}.npz")):
+            tr = Trainer(member, TrainConfig(), compute_dtype=torch.bfloat16)
+            check(next(tr.model.parameters()).is_cuda, "the Trainer is not on the card")
+            tr.load_weights(path)
+            trained.append(jax_variables(tr.model))
+            del tr
+        for (got_p, got_s), what in zip(trained, (".h5", ".npz")):
+            same(got_p, weights[member][0], f"Trainer.load_weights({what}) params")
+            same(got_s, weights[member][1], f"Trainer.load_weights({what}) state")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    torch.cuda.empty_cache()
+    say("h5", f"Pipeline(weights=discover_weights(.h5 dir)) bf16 masks equal the .npz Pipeline's on a "
+              f"{img.shape[0]}x{img.shape[1]} scene, all five members; Trainer({member!r}).load_weights of the .h5 "
+              f"equals that of the .npz")
+
+    npz, h5, again = (os.path.join(work, n) for n in ("scse.npz", "scse_cli.h5", "scse_back.npz"))
+    save_variables(npz, *weights["scse"])
+    _, to_h5 = run_cli(here, "convert", ["scse", npz, h5], "bdt-convert npz->h5")
+    _, to_npz = run_cli(here, "convert", ["scse", h5, again], "bdt-convert h5->npz")
+    got_p, got_s, *_ = load_variables(again)
+    want_p, want_s, *_ = load_variables(npz)
+    same(got_p, want_p, "bdt-convert params")
+    same(got_s, want_s, "bdt-convert state")
+    check("h5py" not in sys.modules, "h5py was imported")
+    installed = importlib.util.find_spec("h5py") is not None  # looked up, not imported
+    check(K.edge_weight_maps.launches == launches, "the .h5 phase launched the edge-weight kernel")
+    say("h5", f"bdt-convert npz -> h5 {to_h5:.1f} s, h5 -> npz {to_npz:.1f} s, weights back bit for bit; h5py "
+              f"never imported ({'installed' if installed else 'not installed'} on this machine); phase "
+              f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_remat():

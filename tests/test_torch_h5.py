@@ -8,8 +8,10 @@
 * both packages' exports write the same file;
 * ``keras_layer_order.json`` is the JAX package's, byte for byte;
 * a port ``Pipeline`` built from an ``.h5`` gives the JAX ``Pipeline``'s
-  masks (f32, 32 px tiles), and the port raises ``ImportError`` naming
-  ``h5py`` where it is missing;
+  masks (f32, 32 px tiles);
+* with ``h5py`` blocked, the port's import, export, ``.h5`` ``Pipeline``
+  and ``bdt-convert`` still run (the port reads and writes ``.h5`` with
+  :mod:`utils.hdf5`) and give the JAX package's results on the same files;
 * ``bdt-convert`` round trips with either package on the other side, and a
   wrong-model ``.npz`` exits with the JAX message.
 
@@ -285,17 +287,55 @@ def test_pipeline_from_h5_matches_jax_pipeline(tmp_path, capsys):
     np.testing.assert_array_equal(port.ensemble.predict_masks(img)["scse"], want.ensemble.predict_masks(img)["scse"])
 
 
-def test_missing_h5py_raises_import_error_naming_it(tmp_path, monkeypatch):
-    params, state = small_variables(5)
-    path = str(tmp_path / "w.h5")
-    port_ckpt.export_h5_weights(path, params, state)
+def test_port_h5_paths_run_with_h5py_blocked(tmp_path, monkeypatch, capsys):
+    """With ``h5py`` blocked, the port's import, export, ``Pipeline`` from
+    an ``.h5`` and ``bdt-convert`` run (the port reads and writes the files
+    itself) and give what the JAX package gave on the same files before the
+    block."""
+    src_p, src_s = jax_variables(port_registry.init_model("scse", torch.Generator().manual_seed(5)))
+    tgt_p, tgt_s = {k: v + 0.5 for k, v in src_p.items()}, {k: v + 0.25 for k, v in src_s.items()}
+    order = jax_registry.keras_layer_order("scse")
+    jax_h5, npz = str(tmp_path / "jax.h5"), str(tmp_path / "src.npz")
+    jax_ckpt.export_h5_weights(jax_h5, src_p, src_s, layer_order=order)
+    port_ckpt.save_variables(npz, src_p, src_s)
+    img = np.random.RandomState(6).randint(0, 256, (40, 50, 3), np.uint8)
+    want_import = jax_ckpt.import_h5_weights(jax_h5, dict(tgt_p), dict(tgt_s))
+    want_mask = JaxPipeline({"scse": jax_h5}, cfg=TILE_CFG, batch_tiles=4, models=("scse",),
+                            compute_dtype=jnp.float32).ensemble.predict_masks(img)["scse"]
+    cli_h5, want_npz = str(tmp_path / "cli_jax.h5"), str(tmp_path / "want.npz")
+    assert jax_convert.main(["scse", npz, cli_h5, "--image-size", "32"]) == 0
+    assert jax_convert.main(["scse", cli_h5, want_npz, "--image-size", "32"]) == 0
+    capsys.readouterr()
+
     monkeypatch.setitem(sys.modules, "h5py", None)
-    with pytest.raises(ImportError, match="h5py"):
-        port_ckpt.import_h5_weights(path, params, state)
-    with pytest.raises(ImportError, match="h5py"):
-        port_ckpt.export_h5_weights(str(tmp_path / "x.h5"), params, state)
-    with pytest.raises(ImportError, match="h5py"):
-        Pipeline({"scse": path}, cfg=TILE_CFG, models=("scse",), device="cpu")
+    got_import = port_ckpt.import_h5_weights(jax_h5, dict(tgt_p), dict(tgt_s))
+    port_h5 = str(tmp_path / "port.h5")
+    port_ckpt.export_h5_weights(port_h5, src_p, src_s, layer_order=order)
+    round_trip = port_ckpt.import_h5_weights(port_h5, dict(tgt_p), dict(tgt_s))
+    mask = Pipeline({"scse": jax_h5}, cfg=TILE_CFG, batch_tiles=4, models=("scse",), compute_dtype=torch.float32,
+                    device="cpu").ensemble.predict_masks(img)["scse"]
+    port_cli_h5, back_npz, jax_file_npz = (str(tmp_path / n) for n in ("cli_port.h5", "back.npz", "jax_file.npz"))
+    assert port_convert.main(["scse", npz, port_cli_h5, "--image-size", "32"]) == 0
+    assert port_convert.main(["scse", port_cli_h5, back_npz, "--image-size", "32"]) == 0
+    assert port_convert.main(["scse", cli_h5, jax_file_npz, "--image-size", "32"]) == 0
+    assert sys.modules["h5py"] is None
+    monkeypatch.undo()
+
+    for got in (got_import, round_trip):
+        for w, g in zip(want_import[:2], got[:2]):
+            assert list(g) == list(w)
+            for k in w:
+                np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+        assert dataclasses.asdict(got[2]) == dataclasses.asdict(want_import[2])
+    np.testing.assert_array_equal(mask, want_mask)
+    assert_same_h5(port_h5, jax_h5)
+    assert_same_h5(port_cli_h5, cli_h5)
+    want = npz_arrays(want_npz)
+    for path in (back_npz, jax_file_npz):
+        got = npz_arrays(path)
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 # -- bdt-convert ------------------------------------------------------------------------

@@ -1,17 +1,18 @@
-"""The PyTorch port stands alone: it runs without JAX, PIL, OpenCV and the
-JAX package, and its entry points run on the card unless asked for the CPU.
+"""The PyTorch port stands alone: it runs without JAX, PIL, OpenCV, h5py and
+the JAX package, and its entry points run on the card unless asked for the CPU.
 
-* In a subprocess that blocks ``jax``, ``PIL``, ``cv2`` and
+* In a subprocess that blocks ``jax``, ``PIL``, ``cv2``, ``h5py`` and
   ``building_detection_tpu`` itself, every module of the port imports, and
   ``make_targets``, a ``Pipeline`` over tiny members (fusion and polygons
   included), the geometry on both of its paths, a ``Trainer`` (augmented
   steps, the staged epoch, save and restore), the per-model engine and the
   blocked path, int8 pointwise convs (calibration, fused and per-model),
-  ``bdt-convert``'s refusals, ``bdt-client`` against the port's server, and
+  ``bdt-convert``'s refusals, a Keras ``.h5`` round trip and a one-member
+  ``Pipeline`` from an ``.h5``, ``bdt-client`` against the port's server, and
   the predict, serve and augment CLIs as far as they need no image file,
   and the launcher over two Gloo workers run end to end on the CPU.
 * No file of the port, and not ``chip_smoke.py``, imports the JAX package
-  (an AST scan, which also sees imports inside functions).
+  or ``h5py`` (an AST scan, which also sees imports inside functions).
 * ``Pipeline()``, ``FusedEnsemblePredictor``, ``Trainer``,
   ``TiledPredictor``, ``EnsemblePredictor``, the launcher
   (``parallel/launch.py``) and the predict and serve CLIs with no device
@@ -35,7 +36,7 @@ JAX_PACKAGE = "building_detection_tpu"
 SCRIPT = textwrap.dedent(
     """
     import sys
-    for blocked in ("jax", "jaxlib", "PIL", "cv2", "building_detection_tpu"):
+    for blocked in ("jax", "jaxlib", "PIL", "cv2", "h5py", "building_detection_tpu"):
         sys.modules[blocked] = None
     import importlib, pkgutil
     import numpy as np
@@ -171,6 +172,27 @@ SCRIPT = textwrap.dedent(
             else:
                 raise AssertionError("bdt-convert took " + " ".join(argv))
 
+    # Keras .h5 with the port's own reader and writer: the small model's round
+    # trip, then a one-member Pipeline from an .h5 equal to one from its .npz
+    from building_detection_tpu_torch.models.registry import init_model, keras_layer_order
+    from building_detection_tpu_torch.train.checkpoint import export_h5_weights, import_h5_weights
+
+    with tempfile.TemporaryDirectory() as d:
+        params, state = jax_variables(Tiny())
+        zeros = [{k: np.zeros_like(v) for k, v in x.items()} for x in (params, state)]
+        export_h5_weights(os.path.join(d, "tiny.h5"), params, state)
+        got_p, got_s, report = import_h5_weights(os.path.join(d, "tiny.h5"), *zeros)
+        assert report.complete and all((got_p[k] == v).all() for k, v in params.items())
+        assert all((got_s[k] == v).all() for k, v in state.items())
+        hrnet = jax_variables(init_model("hrnet", torch.Generator().manual_seed(4)))
+        export_h5_weights(os.path.join(d, "hrnet.h5"), *hrnet, layer_order=keras_layer_order("hrnet"))
+        save_variables(os.path.join(d, "hrnet.npz"), *hrnet)
+        small = np.random.RandomState(5).randint(0, 256, (40, 50, 3), np.uint8)
+        masks = [Pipeline({"hrnet": os.path.join(d, f)}, cfg=cfg, batch_tiles=4, models=("hrnet",),
+                          compute_dtype=torch.float32, device="cpu").ensemble.predict_masks(small)["hrnet"]
+                 for f in ("hrnet.h5", "hrnet.npz")]
+        assert masks[0].shape == (40, 50) and (masks[0] == masks[1]).all()
+
     # bdt-client against the port's server on 127.0.0.1 (no PIL here: the
     # upload cannot be decoded, so the answer is NG, which the client reports)
     import threading
@@ -199,7 +221,7 @@ SCRIPT = textwrap.dedent(
     from building_detection_tpu_torch.parallel.launch import launch
     assert launch(operator.add, 1, 2, local_devices=2, backend="gloo", device_type="cpu") == 3
 
-    for mod in ("jax", "PIL", "cv2", "building_detection_tpu"):
+    for mod in ("jax", "PIL", "cv2", "h5py", "building_detection_tpu"):
         assert sys.modules[mod] is None, mod
     assert not [m for m in sys.modules if m.startswith("building_detection_tpu.")]
     print("NOJAX-OK")
@@ -232,6 +254,12 @@ PORT_FILES = sorted((REPO / "building_detection_tpu_torch").rglob("*.py")) + [RE
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_file_of_the_port_imports_the_jax_package(path):
     bad = [m for m in imported_modules(path) if m == JAX_PACKAGE or m.startswith(JAX_PACKAGE + ".")]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_file_of_the_port_imports_h5py(path):
+    bad = [m for m in imported_modules(path) if m == "h5py" or m.startswith("h5py.")]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
