@@ -2,7 +2,8 @@
 
 The port reads and writes the reference's Keras weights files (``.h5``)
 through this module, so no path of it needs the ``h5py`` package.  The
-format is The HDF Group's *HDF5 File Format Specification, Version 3.0*.
+format is The HDF Group's *HDF5 File Format Specification, Version 3.0*;
+where it leaves a detail open, the library's behaviour is the reference.
 
 :class:`File` reads, read-only, what h5py writes for the Keras weights
 layout under either of its formats:
@@ -18,14 +19,32 @@ layout under either of its formats:
   filters);
 * ``libver='latest'``: superblock v2/v3; ``OHDR``/``OCHK`` object headers;
   links and attributes stored in the header or densely (a fractal heap of
-  managed and tiny objects, indexed by a v2 B-tree); layout v4 compact and
-  contiguous.
+  managed and tiny objects, indexed by a v2 B-tree); layout v4 compact,
+  contiguous and chunked, through each of its five chunk indexes (single
+  chunk, implicit, fixed array, extensible array, v2 B-tree), paged or not,
+  with partial edge chunks left unfiltered where the layout says so.
 
-What lies outside that raises ``ValueError`` naming the feature: a v4
-chunked layout (its chunk indexes), a huge fractal-heap object, a filtered
-fractal heap, shared (committed) messages, soft and external links,
-variable-length string datasets, and datatypes other than the ones above.
-Checksums are not verified.
+What it refuses, the library refuses too, with ``ValueError`` where h5py
+raises ``OSError``:
+
+* a file shorter than the end-of-file address its superblock records;
+* a Fletcher-32 checksum that does not match a chunk's bytes (either the
+  library's form or the byte-swapped one it accepts from files of HDF5
+  1.6.2 and before), and a corrupt deflate stream;
+* a Jenkins lookup3 checksum that does not match its structure: the v2/v3
+  superblock, ``OHDR`` and ``OCHK``, the v2 B-tree's ``BTHD``/``BTIN``/
+  ``BTLF``, the fractal heap's ``FRHP``/``FHIB`` (and ``FHDB`` where the
+  heap checksums its direct blocks), the fixed array's ``FAHD``/``FADB``
+  and its pages, the extensible array's ``EAHD``/``EAIB``/``EASB``/``EADB``
+  and its pages.  Each block is checked once per open file.  Version-1
+  structures carry no checksum (superblock v0/v1, v1 object headers,
+  ``TREE``, ``SNOD``, ``HEAP``, ``GCOL``): h5py's default format costs
+  nothing more to read.
+
+What lies outside the formats above also raises ``ValueError`` naming the
+feature: a huge fractal-heap object, a filtered fractal heap, shared
+(committed) messages, soft and external links, variable-length string
+datasets, and datatypes other than the ones above.
 
 Groups index by ``/``-separated paths, list their members in h5py's order
 (by name, bytewise), and carry ``.attrs``; a dataset reads with ``[()]``.
@@ -58,7 +77,6 @@ _LINK, _LAYOUT, _FILTERS, _ATTRIBUTE, _CONTINUATION, _SYMBOL_TABLE, _ATTRIBUTE_I
 
 _CLASS_NAMES = {2: "time", 4: "bitfield", 5: "opaque", 6: "compound", 7: "reference", 8: "enum", 10: "array"}
 _FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip", 5: "nbit", 6: "scaleoffset"}
-_CHUNK_INDEXES = {1: "single chunk", 2: "implicit", 3: "fixed array", 4: "extensible array", 5: "v2 B-tree"}
 
 _MAX_MESSAGE = 0xFFFF  # a v1 header message's size (8-byte aligned) is a 16-bit field
 
@@ -80,6 +98,88 @@ def _u(b, pos: int, n: int) -> int:
 
 def _log2(n: int) -> int:
     return n.bit_length() - 1
+
+
+_M32 = 0xFFFFFFFF
+
+
+def lookup3(data: bytes) -> int:
+    """Bob Jenkins' lookup3 ``hashlittle`` of ``data`` with initval 0: the
+    checksum of HDF5's v2 metadata (the library's ``H5_checksum_lookup3``).
+    The bytes go in as little-endian words, 12 at a time; the last block,
+    zero-padded, gets the final mix (none for empty data)."""
+    n = len(data)
+    a = b = c = (0xDEADBEEF + n) & _M32
+    if n == 0:
+        return c
+    words = struct.unpack(f"<{(n + 11) // 12 * 3}I", bytes(data) + bytes(-n % 12))
+    for i in range(0, len(words) - 3, 3):
+        a, b, c = (a + words[i]) & _M32, (b + words[i + 1]) & _M32, (c + words[i + 2]) & _M32
+        a = ((a - c) & _M32) ^ (((c << 4) & _M32) | (c >> 28))
+        c = (c + b) & _M32
+        b = ((b - a) & _M32) ^ (((a << 6) & _M32) | (a >> 26))
+        a = (a + c) & _M32
+        c = ((c - b) & _M32) ^ (((b << 8) & _M32) | (b >> 24))
+        b = (b + a) & _M32
+        a = ((a - c) & _M32) ^ (((c << 16) & _M32) | (c >> 16))
+        c = (c + b) & _M32
+        b = ((b - a) & _M32) ^ (((a << 19) & _M32) | (a >> 13))
+        a = (a + c) & _M32
+        c = ((c - b) & _M32) ^ (((b << 4) & _M32) | (b >> 28))
+        b = (b + a) & _M32
+    a, b, c = (a + words[-3]) & _M32, (b + words[-2]) & _M32, (c + words[-1]) & _M32
+    c = ((c ^ b) - (((b << 14) & _M32) | (b >> 18))) & _M32
+    a = ((a ^ c) - (((c << 11) & _M32) | (c >> 21))) & _M32
+    b = ((b ^ a) - (((a << 25) & _M32) | (a >> 7))) & _M32
+    c = ((c ^ b) - (((b << 16) & _M32) | (b >> 16))) & _M32
+    a = ((a ^ c) - (((c << 4) & _M32) | (c >> 28))) & _M32
+    b = ((b ^ a) - (((a << 14) & _M32) | (a >> 18))) & _M32
+    c = ((c ^ b) - (((b << 24) & _M32) | (b >> 8))) & _M32
+    return c
+
+
+_FLETCHER_BLOCK = 1 << 20  # words a numpy pass: sums of index x word stay far inside uint64
+
+
+def fletcher32(data: bytes) -> int:
+    """The library's Fletcher-32 of ``data`` (``H5_checksum_fletcher32``):
+    the sums run over big-endian 16-bit words (an odd last byte counts as
+    ``byte << 8``) and fold as ones' complement, so each lands in 1..0xffff
+    unless every word is 0; the value is ``(sum2 << 16) | sum1``.  With
+    ``P_k`` the prefix sums of the ``m`` words, ``sum1`` is ``P_{m-1}`` and
+    ``sum2`` is ``sum P_k = sum (m - i) w_i``, both taken mod 65535, which
+    numpy computes a block at a time."""
+    raw = np.frombuffer(data, np.uint8)
+    if len(raw) % 2:
+        raw = np.concatenate([raw, np.zeros(1, np.uint8)])
+    words = raw.view(">u2")
+    m, s1, s2 = len(words), 0, 0
+    for start in range(0, m, _FLETCHER_BLOCK):
+        w = words[start:start + _FLETCHER_BLOCK].astype(np.uint64)
+        ws = int(w.sum())
+        s1 += ws
+        s2 += (m - start) * ws - int(np.dot(w, np.arange(len(w), dtype=np.uint64)))
+    if s1 == 0:  # every word 0: the running sums never left 0
+        return 0
+    return ((s2 - 1) % 65535 + 1) << 16 | ((s1 - 1) % 65535 + 1)
+
+
+def _fletcher_ok(raw: bytes) -> bool:
+    """Whether the 4 bytes after the data hold its Fletcher-32, as the
+    library writes it (little-endian) or with each 16-bit half byte-swapped
+    (HDF5 1.6.2 and before, which the library still accepts)."""
+    stored, want = _u(raw, len(raw) - 4, 4), fletcher32(raw[:-4])
+    swapped = ((want & 0x00FF00FF) << 8) | ((want >> 8) & 0x00FF00FF)
+    return stored in (want, swapped)
+
+
+def _le_uints(cols: np.ndarray) -> np.ndarray:
+    """The little-endian unsigned integers in the rows of a ``(n, width)``
+    uint8 array."""
+    out = np.zeros(len(cols), np.uint64)
+    for i in range(cols.shape[1]):
+        out |= cols[:, i].astype(np.uint64) << np.uint64(8 * i)
+    return out
 
 
 class _Cursor:
@@ -134,6 +234,7 @@ class _Store:
                 raise ValueError(f"{path} is not an HDF5 file ({e})") from None
         self._global: Dict[int, Dict[int, Tuple[int, int]]] = {}
         self._heaps: Dict[int, "_FractalHeap"] = {}
+        self._verified: set = set()  # addresses whose checksum matched
         self.O = self.L = 8
         self.base = 0
         try:
@@ -148,6 +249,32 @@ class _Store:
     def address(self, value: int) -> Optional[int]:
         return None if value == (1 << (8 * self.O)) - 1 else value + self.base
 
+    def verify(self, addr: int, size: int, what: str, zeroed: Optional[int] = None) -> None:
+        """Check the lookup3 checksum of the ``size`` bytes at ``addr``,
+        stored in the 4 bytes after them or, for a block that holds its
+        checksum inside (a fractal heap's direct block), at ``zeroed``,
+        read as 0 while the block is summed.  Each block once per file."""
+        if addr in self._verified:
+            return
+        at = addr + size if zeroed is None else zeroed
+        if max(at + 4, addr + size) > len(self.buf):
+            raise ValueError(f"HDF5 {what} at {addr} runs past the end of the file ({len(self.buf)} bytes)")
+        image = self.buf[addr:addr + size]
+        if zeroed is not None:
+            image = image[:zeroed - addr] + bytes(4) + image[zeroed - addr + 4:]
+        stored, computed = _u(self.buf, at, 4), lookup3(image)
+        if stored != computed:
+            raise ValueError(f"HDF5 {what} at {addr}: checksum mismatch (stored {stored:#010x}, "
+                             f"computed {computed:#010x})")
+        self._verified.add(addr)
+
+    def take(self, addr: int, size: int, what: str) -> bytes:
+        """The ``size`` bytes at ``addr``, which must lie inside the file."""
+        if addr + size > len(self.buf):
+            raise ValueError(f"HDF5 {what} at {addr} ({size} bytes) runs past the end of the file "
+                             f"({len(self.buf)} bytes)")
+        return self.buf[addr:addr + size]
+
     # -- superblock ----------------------------------------------------------------
     def _superblock(self, path: str) -> int:
         at = 0
@@ -159,17 +286,27 @@ class _Store:
         if version in (0, 1):
             self.O, self.L = self.buf[at + 13], self.buf[at + 14]
             c = _Cursor(self, at + 24 + (4 if version == 1 else 0))
-            self.base = c.u(self.O)
-            c.pos += 3 * self.O  # free-space info, end of file, driver information block
+            base = c.u(self.O)
+            c.pos += self.O  # free-space info
+            eof = c.u(self.O)
+            c.pos += self.O  # driver information block
             c.pos += self.O  # the root's symbol-table entry: its link name offset
-            return c.addr()
-        if version in (2, 3):
+        elif version in (2, 3):
             self.O, self.L = self.buf[at + 9], self.buf[at + 10]
+            self.verify(at, 12 + 4 * self.O, f"superblock (version {version})")
             c = _Cursor(self, at + 12)
-            self.base = c.u(self.O)
-            c.pos += 2 * self.O  # superblock extension, end of file
-            return c.addr()
-        raise ValueError(f"{path}: HDF5 superblock version {version} is not supported")
+            base, extension, eof = c.u(self.O), c.u(self.O), c.u(self.O)
+        else:
+            raise ValueError(f"{path}: HDF5 superblock version {version} is not supported")
+        # as the library: addresses count from the superblock, the stored end
+        # of file moves with it, and a file that ends before it is truncated
+        self.base, eof = at, eof - base + at
+        if len(self.buf) < eof:
+            raise ValueError(f"{path}: truncated HDF5 file ({len(self.buf)} bytes; its superblock "
+                             f"records {eof})")
+        if version >= 2 and self.address(extension) is not None:
+            self.messages(self.address(extension))  # the library reads (and checks) it at open
+        return c.addr()
 
     # -- object headers ------------------------------------------------------------
     def messages(self, addr: int) -> List[Tuple[int, int, int]]:
@@ -182,6 +319,7 @@ class _Store:
             pos = addr + 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
             n = 1 << (flags & 3)
             blocks = [(pos + n, _u(buf, pos, n))]
+            self.verify(addr, pos + n + blocks[0][1] - addr, "object header (OHDR)")
             head, v2 = (6 if flags & 0x04 else 4), True
         elif buf[addr] == 1:
             blocks = [(addr + 16, _u(buf, addr + 8, 4))]
@@ -200,7 +338,10 @@ class _Store:
                 if mtype == _CONTINUATION:
                     c = _Cursor(self, data)
                     where, length = c.addr(), c.length()
-                    blocks.append((where + 4, length - 8) if v2 else (where, length))  # OCHK: signature, checksum
+                    if v2:  # OCHK: signature, messages, checksum
+                        _Cursor(self, where).expect(b"OCHK", "object header continuation")
+                        self.verify(where, length - 4, "object header continuation (OCHK)")
+                    blocks.append((where + 4, length - 8) if v2 else (where, length))
                 elif mtype != _NIL:
                     out.append((mtype, data, mflags))
         return out
@@ -259,6 +400,7 @@ class _Store:
         """Every record of the v2 B-tree at ``addr``, internal nodes' included."""
         c = _Cursor(self, addr)
         c.expect(b"BTHD", "v2 B-tree header")
+        self.verify(addr, 18 + self.O + self.L, "v2 B-tree header (BTHD)")
         c.pos += 2
         node_size, rec_size, depth = c.u(4), c.u(2), c.u(2)
         c.pos += 2
@@ -278,7 +420,10 @@ class _Store:
         while stack:
             node, nrec, d = stack.pop()
             c = _Cursor(self, node)
-            c.expect(b"BTIN" if d else b"BTLF", "v2 B-tree node")
+            kind = b"BTIN" if d else b"BTLF"
+            c.expect(kind, "v2 B-tree node")
+            pointers = (nrec + 1) * (self.O + nrec_size + (cum_size[d - 1] if d > 1 else 0)) if d else 0
+            self.verify(node, 6 + nrec * rec_size + pointers, f"v2 B-tree node ({kind.decode()})")
             c.pos += 2
             records.extend(c.take(rec_size) for _ in range(nrec))
             for _ in range(nrec + 1 if d else 0):
@@ -297,6 +442,112 @@ class _Store:
         the v2 B-tree holds a heap ID at ``id_at``."""
         h = self.heap(heap)
         return [h.object(r[id_at:id_at + id_len]) for r in self.btree2_records(btree)]
+
+    # -- v4 chunk indexes: fixed and extensible arrays -----------------------------
+    def fixed_array(self, addr: int) -> Tuple[int, List[Tuple[int, bytes]]]:
+        """The element size of the fixed array at ``addr`` and its elements,
+        as runs of ``(index of the first element, their bytes)``.  A data
+        block of more than ``2**page_bits`` elements is split into pages, each
+        with its checksum; a page never written (its bit clear in the block's
+        bitmap, most significant bit first) is left out."""
+        c = _Cursor(self, addr)
+        c.expect(b"FAHD", "fixed array header")
+        self.verify(addr, 8 + self.L + self.O, "fixed array header (FAHD)")
+        c.pos += 2  # version, client
+        es, page_bits, n, block = c.u(1), c.u(1), c.length(), c.addr()
+        if block is None:
+            return es, []
+        _Cursor(self, block).expect(b"FADB", "fixed array data block")
+        at, page = block + 6 + self.O, 1 << page_bits  # after signature, version, client, header address
+        if n <= page:
+            self.verify(block, at - block + n * es, "fixed array data block (FADB)")
+            return es, [(0, self.buf[at:at + n * es])]
+        npages = -(-n // page)
+        bitmap = self.buf[at:at + (npages + 7) // 8]
+        self.verify(block, at - block + len(bitmap), "fixed array data block (FADB)")
+        runs, at = [], at + len(bitmap) + 4
+        for p in range(npages):
+            count = min(page, n - p * page)
+            if bitmap[p // 8] & (0x80 >> (p % 8)):
+                self.verify(at, count * es, "fixed array data block page")
+                runs.append((p * page, self.buf[at:at + count * es]))
+            at += page * es + 4
+        return es, runs
+
+    def extensible_array(self, addr: int) -> Tuple[int, List[Tuple[int, bytes]]]:
+        """As :meth:`fixed_array`, for the extensible array at ``addr``: the
+        index block's own elements, then data blocks by super block ``u``
+        (``2**(u // 2)`` blocks of ``2**((u + 1) // 2) * min_elements``
+        elements), the first super blocks' data blocks addressed from the
+        index block, the rest through super blocks, whose bitmaps say which
+        pages of a paged data block were written."""
+        O = self.O
+        c = _Cursor(self, addr)
+        c.expect(b"EAHD", "extensible array header")
+        self.verify(addr, 12 + 6 * self.L + O, "extensible array header (EAHD)")
+        c.pos += 2  # version, client
+        es, max_bits, index_elements, min_elements, min_pointers, page_bits = (c.u(1) for _ in range(6))
+        c.pos += 6 * self.L  # statistics
+        iblock = c.addr()
+        if iblock is None:
+            return es, []
+        page, offset_size = 1 << page_bits, (max_bits + 7) // 8
+        nsuper = 1 + max_bits - _log2(min_elements)
+        blocks = [1 << (u // 2) for u in range(nsuper)]
+        elements = [(1 << ((u + 1) // 2)) * min_elements for u in range(nsuper)]
+        first = [index_elements]
+        for u in range(nsuper - 1):
+            first.append(first[-1] + blocks[u] * elements[u])
+        in_index = 2 * _log2(min_pointers)  # super blocks whose data blocks the index block addresses
+        ndirect = sum(blocks[:in_index])
+        _Cursor(self, iblock).expect(b"EAIB", "extensible array index block")
+        at = iblock + 6 + O
+        self.verify(iblock, 6 + O + index_elements * es + (ndirect + nsuper - in_index) * O,
+                    "extensible array index block (EAIB)")
+        runs = [(0, self.buf[at:at + index_elements * es])]
+        c = _Cursor(self, at + index_elements * es)
+        direct = [c.addr() for _ in range(ndirect)]
+        supers = [c.addr() for _ in range(nsuper - in_index)]
+        for u in range(in_index):
+            for k in range(blocks[u]):
+                block = direct.pop(0)
+                if block is not None:
+                    runs += self._ea_data_block(block, first[u] + k * elements[u], elements[u], es, offset_size, page)
+        for u, sblock in zip(range(in_index, nsuper), supers):
+            if sblock is None:
+                continue
+            npages = elements[u] // page if elements[u] > page else 0
+            bitmap_len = blocks[u] * ((npages + 7) // 8)
+            _Cursor(self, sblock).expect(b"EASB", "extensible array super block")
+            at = sblock + 6 + O + offset_size  # after signature, version, client, header address, block offset
+            self.verify(sblock, at - sblock + bitmap_len + blocks[u] * O, "extensible array super block (EASB)")
+            bitmap = self.buf[at:at + bitmap_len]
+            c = _Cursor(self, at + bitmap_len)
+            for k in range(blocks[u]):
+                block = c.addr()
+                if block is not None:
+                    runs += self._ea_data_block(block, first[u] + k * elements[u], elements[u], es, offset_size,
+                                                page, bitmap, k * npages)
+        return es, runs
+
+    def _ea_data_block(self, addr: int, start: int, n: int, es: int, offset_size: int, page: int,
+                       bitmap: Optional[bytes] = None, bit: int = 0) -> List[Tuple[int, bytes]]:
+        _Cursor(self, addr).expect(b"EADB", "extensible array data block")
+        at = addr + 6 + self.O + offset_size  # after signature, version, client, header address, block offset
+        if n <= page:
+            self.verify(addr, at - addr + n * es, "extensible array data block (EADB)")
+            return [(start, self.buf[at:at + n * es])]
+        if bitmap is None:
+            raise ValueError(f"HDF5 extensible array data block at {addr}: a paged block in the index block "
+                             "is not supported")
+        self.verify(addr, at - addr, "extensible array data block (EADB)")
+        runs, at = [], at + 4
+        for p in range(n // page):
+            if bitmap[(bit + p) // 8] & (0x80 >> ((bit + p) % 8)):
+                self.verify(at, page * es, "extensible array data block page")
+                runs.append((start + p * page, self.buf[at:at + page * es]))
+            at += page * es + 4
+        return runs
 
     # -- the global heap (variable-length data) ------------------------------------
     def global_object(self, collection: int, index: int) -> Tuple[int, int]:
@@ -335,9 +586,10 @@ class _Store:
             cls, _CLASS_NAMES.get(cls, f"class {cls}"))
         raise ValueError(f"HDF5 datatype {what} is not supported")
 
-    def dataspace(self, buf, pos: int) -> Optional[Tuple[int, ...]]:
-        """The shape (``()`` for a scalar), ``None`` for a null dataspace."""
-        version, rank = buf[pos], buf[pos + 1]
+    def dataspace(self, buf, pos: int, maximum: bool = False) -> Optional[Tuple[int, ...]]:
+        """The shape (``()`` for a scalar), ``None`` for a null dataspace;
+        with ``maximum``, the maximum shape (``None`` for an unlimited axis)."""
+        version, rank, flags = buf[pos], buf[pos + 1], buf[pos + 2]
         if version == 1:
             pos += 8
         elif version == 2:
@@ -346,6 +598,10 @@ class _Store:
             pos += 4
         else:
             raise ValueError(f"HDF5 dataspace version {version} is not supported")
+        if maximum and flags & 1:  # the maximum dimensions follow the dimensions
+            pos += rank * self.L
+            dims = [_u(buf, pos + i * self.L, self.L) for i in range(rank)]
+            return tuple(None if d == (1 << (8 * self.L)) - 1 else d for d in dims)
         return tuple(_u(buf, pos + i * self.L, self.L) for i in range(rank))
 
     def values(self, t: _Type, shape, buf, pos: int):
@@ -399,8 +655,10 @@ class _FractalHeap:
         c = _Cursor(f, addr)
         c.expect(b"FRHP", "fractal heap header")
         c.pos += 1
-        self.id_len, filters = c.u(2), c.u(2)
-        c.pos += 1
+        self.id_len, filters, flags = c.u(2), c.u(2), c.u(1)
+        f.verify(addr, 22 + 12 * f.L + 3 * f.O + (f.L + 4 + filters if filters else 0),
+                 "fractal heap header (FRHP)")
+        self.checksummed = bool(flags & 0x02)  # the direct blocks carry a checksum
         max_managed = c.u(4)
         c.pos += f.L + f.O + f.L + f.O + 8 * f.L  # huge-object and free-space bookkeeping, counters
         self.width, self.start, max_direct = c.u(2), c.length(), c.length()
@@ -420,8 +678,14 @@ class _FractalHeap:
         if kind == 0:  # managed: an offset into the heap's address space and a length
             off = int.from_bytes(hid[1:1 + self.off_size], "little")
             n = int.from_bytes(hid[1 + self.off_size:1 + self.off_size + self.len_size], "little")
-            at = self.root + off if self.rows == 0 else self._locate(self.root, self.rows, 0, off)
-            return self.f.buf[at:at + n]
+            if self.rows == 0:  # the root is a direct block of the starting size
+                block, size, at = self.root, self.start, self.root + off
+            else:
+                block, size, at = self._locate(self.root, self.rows, 0, off)
+            if self.checksummed:
+                self.f.verify(block, size, "fractal heap direct block (FHDB)",
+                              zeroed=block + 5 + self.f.O + self.off_size)
+            return self.f.take(at, n, "fractal heap object")
         if kind == 2:  # tiny: the object is inside the ID
             if self.id_len <= 18:
                 return hid[1:2 + (hid[0] & 0x0F)]
@@ -431,11 +695,14 @@ class _FractalHeap:
     def _row_size(self, row: int) -> int:
         return self.start if row == 0 else self.start << (row - 1)
 
-    def _locate(self, addr: int, rows: int, base: int, off: int) -> int:
-        """The file position of heap offset ``off`` under the indirect
-        block at ``addr`` whose address space starts at ``base``."""
+    def _locate(self, addr: int, rows: int, base: int, off: int) -> Tuple[int, int, int]:
+        """``(direct block, its size, file position)`` of heap offset ``off``
+        under the indirect block at ``addr`` whose address space starts at
+        ``base``."""
         f = self.f
+        _Cursor(f, addr).expect(b"FHIB", "fractal heap indirect block")
         entries = addr + 5 + f.O + self.off_size  # signature, version, heap header address, block offset
+        f.verify(addr, entries + rows * self.width * f.O - addr, "fractal heap indirect block (FHIB)")
         start = base
         for row in range(rows):
             size = self._row_size(row)
@@ -445,7 +712,7 @@ class _FractalHeap:
                     if child is None:
                         raise ValueError(f"HDF5 fractal heap offset {off} lies in an unallocated block")
                     if row < self.max_direct_rows:
-                        return child + (off - start)
+                        return child, size, child + (off - start)
                     sub_rows = _log2(size) - _log2(self.start * self.width) + 1
                     return self._locate(child, sub_rows, start, off)
                 start += size
@@ -594,12 +861,8 @@ class Dataset(_Object):
             if addr is None:  # never written
                 return self._filled(t, shape)
             raw, at = f.buf, addr
-        elif cls == 2 and version == 3:
-            return self._chunked(c, t, shape)
         elif cls == 2:
-            index = f.buf[pos + 5 + f.buf[pos + 3] * f.buf[pos + 4]]
-            raise ValueError(f"HDF5 v4 chunked layout ({_CHUNK_INDEXES.get(index, index)} chunk index) "
-                             "is not supported")
+            return self._chunked(version, c, t, shape)
         else:
             raise ValueError(f"HDF5 data layout class {cls} (virtual) is not supported")
         arr = f.values(t, shape, raw, at)
@@ -626,34 +889,147 @@ class Dataset(_Object):
         arr = self._f.values(t, (n,), self._fill(t) * n, 0).reshape(shape)
         return arr[()] if arr.ndim == 0 else arr
 
-    def _chunked(self, c: _Cursor, t: _Type, shape) -> np.ndarray:
-        f = self._f
-        rank = c.u(1)
-        btree = c.addr()
-        chunk = tuple(c.u(4) for _ in range(rank))[:-1]  # the last is the element size
+    @property
+    def maxshape(self) -> Optional[Tuple[Optional[int], ...]]:
+        _, pos, _ = self._first(_DATASPACE)
+        return self._f.dataspace(self._f.buf, pos, maximum=True)
+
+    def _chunked(self, version: int, c: _Cursor, t: _Type, shape) -> np.ndarray:
+        """A chunked dataset: the fill value where no chunk was written, and
+        each written chunk through the filter pipeline into its place."""
+        f, filters = self._f, self._filters()
+        if version == 3:  # a v1 B-tree keyed by each chunk's size, filter mask and element offsets
+            rank = c.u(1)
+            btree = c.addr()
+            chunk = tuple(c.u(4) for _ in range(rank))[:-1]  # the last is the element size
+            flags, chunks = 0, [
+                (tuple(_u(f.buf, key + 8 + 8 * i, 8) for i in range(rank - 1)), addr, _u(f.buf, key, 4),
+                 _u(f.buf, key + 4, 4))
+                for key, addr in ([] if btree is None else f.btree1_leaves(btree, 8 + 8 * rank))]
+        else:  # v4: dimensions of an encoded width, then one of five chunk indexes keyed by scaled offsets
+            flags, rank, width = c.u(1), c.u(1), c.u(1)
+            chunk = tuple(c.u(width) for _ in range(rank))[:-1]
+            chunks = [(tuple(s * n for s, n in zip(scaled, chunk)), addr, size, mask)
+                      for scaled, addr, size, mask in self._v4_chunks(c, flags, chunk, t)]
         out = np.frombuffer(self._fill(t), t.dtype).repeat(int(np.prod(shape, dtype=np.int64))).reshape(shape)
-        filters = self._filters()
-        for key, addr in ([] if btree is None else f.btree1_leaves(btree, 8 + 8 * rank)):
-            size, mask = _u(f.buf, key, 4), _u(f.buf, key + 4, 4)
-            offsets = [_u(f.buf, key + 8 + 8 * i, 8) for i in range(rank - 1)]
-            raw = f.buf[addr:addr + size]
-            for i, (fid, values) in reversed(list(enumerate(filters))):
-                if mask & (1 << i):
-                    continue
-                if fid == 1:
-                    raw = zlib.decompress(raw)
-                elif fid == 2:  # shuffle: byte k of every element, then byte k + 1, ...
-                    es = values[0] if values else t.size
-                    n = len(raw) // es
-                    raw = np.frombuffer(raw, np.uint8, n * es).reshape(es, n).T.tobytes() + raw[n * es:]
-                elif fid == 3:  # fletcher32: a checksum after the data
-                    raw = raw[:-4]
-            block = np.frombuffer(raw, t.dtype, int(np.prod(chunk, dtype=np.int64))).reshape(chunk)
-            dst = tuple(slice(o, min(o + n, s)) for o, n, s in zip(offsets, chunk, shape))
-            out[dst] = block[tuple(slice(0, d.stop - d.start) for d in dst)]
+        for offsets, addr, size, mask in chunks:
+            raw = f.take(addr, size, f"chunk of {self.name!r} at {offsets}")
+            edge = any(o + n > s for o, n, s in zip(offsets, chunk, shape))
+            if filters and not (edge and flags & 0x01):  # bit 0: partial edge chunks are stored unfiltered
+                raw = self._unfilter(raw, filters, mask, t, offsets)
+            self._place(out, raw, t, chunk, offsets)
         if t.pad is not None:  # strings: the padding rules of values()
             out = f.values(t, shape, out.tobytes(), 0)
         return out[()] if out.ndim == 0 else out
+
+    def _v4_chunks(self, c: _Cursor, flags: int, chunk, t: _Type) -> List[Tuple[Tuple[int, ...], int, int, int]]:
+        """``(scaled offsets, address, stored size, filter mask)`` of every
+        written chunk, from the chunk index of a v4 layout message whose
+        index type ``c`` points at.  The fixed and extensible arrays hold
+        one element a chunk of the dataset's maximum chunk grid, row-major,
+        the extensible array's unlimited axis moved first."""
+        f = self._f
+        kind, nbytes = c.u(1), int(np.prod(chunk, dtype=np.int64)) * t.size
+        grid = [None if m is None else -(-m // n) for m, n in zip(self.maxshape, chunk)]
+        if kind == 1:  # single chunk: the address in the message (bit 1: with its size and filter mask)
+            size, mask = (c.length(), c.u(4)) if flags & 0x02 else (nbytes, 0)
+            addr = c.addr()
+            return [] if addr is None else [((0,) * len(chunk), addr, size, mask)]
+        if kind == 2:  # implicit: unfiltered chunks in order from one address
+            addr = c.addr()
+            if addr is None:
+                return []
+            return [(scaled, addr + int(np.ravel_multi_index(scaled, grid)) * nbytes, nbytes, 0)
+                    for scaled in np.ndindex(*(-(-s // n) for s, n in zip(self.shape, chunk)))]
+        if kind in (3, 4):
+            c.pos += 1 if kind == 3 else 5  # array parameters: the array's header holds them too
+            addr = c.addr()
+            if addr is None:
+                return []
+            es, runs = f.fixed_array(addr) if kind == 3 else f.extensible_array(addr)
+            return self._array_chunks(runs, es, nbytes, grid)
+        if kind == 5:  # v2 B-tree: records of type 10 (address, scaled offsets) or 11 (filtered)
+            c.pos += 6  # node size, split and merge percents: the header holds them too
+            addr = c.addr()
+            if addr is None:
+                return []
+            records = f.btree2_records(addr)
+            filtered, O, r = f.buf[addr + 5] == 11, f.O, len(chunk)
+            out = []
+            for rec in records:
+                n = len(rec) - O - 4 - 8 * r if filtered else 0
+                size, mask = (_u(rec, O, n), _u(rec, O + n, 4)) if filtered else (nbytes, 0)
+                at = O + (n + 4 if filtered else 0)
+                addr = f.address(_u(rec, 0, O))
+                if addr is not None:
+                    out.append((tuple(_u(rec, at + 8 * i, 8) for i in range(r)), addr, size, mask))
+            return out
+        raise ValueError(f"HDF5 chunk index type {kind} is not supported")
+
+    def _array_chunks(self, runs, es: int, nbytes: int, grid) -> List[Tuple[Tuple[int, ...], int, int, int]]:
+        """The written chunks among a fixed or extensible array's elements:
+        an address, then (filtered, when the element is wider) the stored
+        size and the filter mask.  Element ``i`` is the chunk at ``i`` in
+        ``grid``'s row-major order, its unlimited axis (if any) first."""
+        f, O = self._f, self._f.O
+        unlimited = [i for i, g in enumerate(grid) if g is None]
+        order = unlimited + [i for i, g in enumerate(grid) if g is not None]
+        rest = [grid[i] for i in order[1:]]
+        out = []
+        for start, raw in runs:
+            cols = np.frombuffer(raw, np.uint8).reshape(-1, es)
+            addrs = _le_uints(cols[:, :O])
+            written = np.nonzero(addrs != np.uint64((1 << (8 * O)) - 1))[0]
+            if not len(written):
+                continue
+            sizes = _le_uints(cols[written, O:es - 4]) if es > O else np.full(len(written), nbytes)
+            masks = _le_uints(cols[written, es - 4:]) if es > O else np.zeros(len(written))
+            index = written.astype(np.int64) + start
+            swizzled = [index // int(np.prod(rest, dtype=np.int64))]
+            swizzled += list(np.unravel_index(index % int(np.prod(rest, dtype=np.int64)), rest)) if rest else []
+            scaled = np.empty((len(index), len(grid)), np.int64)
+            for axis, coords in zip(order, swizzled):
+                scaled[:, axis] = coords
+            out += [(tuple(map(int, sc)), int(a) + f.base, int(n), int(m))
+                    for sc, a, n, m in zip(scaled, addrs[written], sizes, masks)]
+        return out
+
+    def _unfilter(self, raw: bytes, filters, mask: int, t: _Type, offsets) -> bytes:
+        """A chunk's stored bytes through the filter pipeline, last filter
+        first; bit ``i`` of ``mask`` set skips filter ``i``."""
+        for i, (fid, values) in reversed(list(enumerate(filters))):
+            if mask & (1 << i):
+                continue
+            if fid == 1:
+                try:
+                    raw = zlib.decompress(raw)
+                except zlib.error as e:
+                    raise ValueError(f"HDF5 dataset {self.name!r}: the chunk at {offsets} is not a valid deflate "
+                                     f"stream ({e})") from None
+            elif fid == 2:  # shuffle: byte k of every element, then byte k + 1, ...
+                es = values[0] if values else t.size
+                n = len(raw) // es
+                planes, elements = np.frombuffer(raw, np.uint8, n * es).reshape(es, n), np.empty((n, es), np.uint8)
+                for k in range(es):  # a plane at a time, each read contiguously
+                    elements[:, k] = planes[k]
+                raw = elements.tobytes() + raw[n * es:]
+            elif fid == 3:  # fletcher32: a checksum after the data
+                if len(raw) < 4 or not _fletcher_ok(raw):
+                    raise ValueError(f"HDF5 dataset {self.name!r}: the chunk at {offsets} fails its Fletcher-32 "
+                                     "checksum")
+                raw = raw[:-4]
+        return raw
+
+    def _place(self, out: np.ndarray, raw: bytes, t: _Type, chunk, offsets) -> None:
+        """Put a decoded chunk whose first element is at ``offsets`` into
+        ``out``, cut where it passes the dataset's edge."""
+        n = int(np.prod(chunk, dtype=np.int64))
+        if len(raw) < n * t.size:
+            raise ValueError(f"HDF5 dataset {self.name!r}: the chunk at {offsets} holds {len(raw)} bytes, "
+                             f"not {n * t.size}")
+        block = np.frombuffer(raw, t.dtype, n).reshape(chunk)
+        dst = tuple(slice(o, min(o + k, s)) for o, k, s in zip(offsets, chunk, out.shape))
+        out[dst] = block[tuple(slice(0, max(d.stop - d.start, 0)) for d in dst)]
 
     def _filters(self) -> List[Tuple[int, List[int]]]:
         msg = self._first(_FILTERS)

@@ -43,9 +43,10 @@ default device (the card):
   0) and ``bdt-augment`` (host only);
 * Keras ``.h5`` with the port's own HDF5 reader and writer (no ``h5py``):
   the five members' weights written under the reference deployment's file
-  names and read back bit for bit (MiB/s each way), ``Pipeline`` over them
-  equal to the ``.npz`` run (bf16 masks), ``Trainer.load_weights`` of an
-  ``.h5`` equal to that of its ``.npz``, ``bdt-convert`` both ways;
+  names and read back bit for bit (MiB/s each way), one cut short refused
+  as truncated, ``Pipeline`` over them equal to the ``.npz`` run (bf16
+  masks), ``Trainer.load_weights`` of an ``.h5`` equal to that of its
+  ``.npz``, ``bdt-convert`` both ways;
 * training: ``Trainer`` steps for each of the five members on 512x512 tiles
   at batch 8, in f32 and bf16, with ``make_targets`` (and so the kernel)
   inside every step; one f32 step per member held against the same step on
@@ -193,6 +194,7 @@ TILE_DP_RATE_SCENES = 12          # 1024^2 scenes timed in bf16: groups of 3, 6,
 TILE_DP_BATCHES = (4, 2, 1)       # per-shard batch_tiles tried for the f32 check, largest first
 EVAL_RESULT = "eval launches "
 ENQUEUE_REPEATS = 7               # one-tile-a-shard sharded_bits calls timed on the host clock, their median
+H5_PROBE_REPEATS = 5              # imports of the five members' .h5 timed by --h5-probe
 TP_INFER_MEMBER = "v3plus"        # the [tp] inference member: the 728-channel Xception middle flow, the widest sharded convs
 TP_TRAIN_MEMBER = "scse"          # the [tp] training member, 512x512, batch 8: the fewest bytes gathered a step
 TP_SCENE = 1024                   # 3 x 3 = 9 tiles
@@ -1095,11 +1097,61 @@ def phase_int8(pipe):
     return calls
 
 
-def phase_h5(here: str, work: str):
+def h5_round_trip(work: str, repeats: int = 1):
+    """The ``[h5]`` phase's files: the five members' seeded f32 weights
+    written by ``export_h5_weights`` in Keras' layer order under the
+    reference deployment's file names into ``work``, then imported back
+    onto zeros ``repeats`` times on the host clock.  Returns ``(weights,
+    paths, MiB, write seconds, [import seconds], the last import)``."""
+    import numpy as np
+    import torch
+
+    from building_detection_tpu_torch.core.module import jax_variables
+    from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER, init_model, keras_layer_order
+    from building_detection_tpu_torch.train.checkpoint import export_h5_weights, import_h5_weights
+
+    weights = {name: jax_variables(init_model(name, torch.Generator().manual_seed(SEED + 20 + i)))
+               for i, name in enumerate(ENSEMBLE_ORDER)}
+    paths = {name: os.path.join(work, H5_FILES[name]) for name in ENSEMBLE_ORDER}
+    t0 = time.perf_counter()
+    for name, (params, state) in weights.items():
+        export_h5_weights(paths[name], params, state, layer_order=keras_layer_order(name))
+    write_s = time.perf_counter() - t0
+    mib = sum(os.path.getsize(p) for p in paths.values()) / 2**20
+    read_s = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        back = {name: import_h5_weights(paths[name], *({k: np.zeros_like(v) for k, v in d.items()}
+                                                        for d in weights[name]))
+                for name in ENSEMBLE_ORDER}
+        read_s.append(time.perf_counter() - t0)
+    return weights, paths, mib, write_s, read_s, back
+
+
+def h5_probe() -> int:
+    """``chip_smoke.py --h5-probe``: ``h5_round_trip`` with
+    ``H5_PROBE_REPEATS`` imports, for the port found first on ``sys.path``
+    (the current directory's, so the same measurement runs against another
+    checkout, in turns).  Prints one JSON line with each import's MiB/s."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as work:
+        _, _, mib, write_s, read_s, _ = h5_round_trip(work, H5_PROBE_REPEATS)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    port = os.path.dirname(sys.modules["building_detection_tpu_torch"].__file__)
+    print("h5 probe " + json.dumps({"port": port, "mib": mib, "write_mib_s": mib / write_s,
+                                    "import_mib_s": [mib / r for r in read_s], "smi": smi}), flush=True)
+    return 0
+
+
+def phase_h5(here: str, work: str, smi: str):
     """Keras ``.h5`` weights on this machine, which has no ``h5py``: the port
     reads and writes them itself (``utils/hdf5.py``).  The five members'
     seeded f32 weights are written in Keras' layer order under the reference
-    deployment's file names and read back bit for bit;
+    deployment's file names and read back bit for bit (the import rate is
+    printed with the card, ``smi``); one of them cut short by a few bytes is
+    refused as truncated, as the HDF5 library refuses it;
     ``Pipeline(weights=discover_weights(dir))`` over the ``.h5`` files gives
     the bf16 masks of the same weights loaded from ``.npz`` (deterministic
     cuDNN); ``Trainer.load_weights`` of an ``.h5`` equals that of its
@@ -1113,9 +1165,8 @@ def phase_h5(here: str, work: str):
     from building_detection_tpu_torch.core.module import jax_variables
     from building_detection_tpu_torch.infer.pipeline import Pipeline, discover_weights
     from building_detection_tpu_torch.kernels import edge_weights as K
-    from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER, init_model, keras_layer_order
-    from building_detection_tpu_torch.train.checkpoint import (export_h5_weights, import_h5_weights,
-                                                               load_variables, save_variables)
+    from building_detection_tpu_torch.models.registry import ENSEMBLE_ORDER, keras_layer_order
+    from building_detection_tpu_torch.train.checkpoint import import_h5_weights, load_variables, save_variables
     from building_detection_tpu_torch.train.trainer import Trainer
 
     def same(got, want, what):
@@ -1128,18 +1179,7 @@ def phase_h5(here: str, work: str):
     h5_dir, npz_dir = os.path.join(work, "h5"), os.path.join(work, "npz")
     os.makedirs(h5_dir)
     os.makedirs(npz_dir)
-    weights = {name: jax_variables(init_model(name, torch.Generator().manual_seed(SEED + 20 + i)))
-               for i, name in enumerate(ENSEMBLE_ORDER)}
-    paths = {name: os.path.join(h5_dir, H5_FILES[name]) for name in ENSEMBLE_ORDER}
-    t0 = time.perf_counter()
-    for name, (params, state) in weights.items():
-        export_h5_weights(paths[name], params, state, layer_order=keras_layer_order(name))
-    write_s = time.perf_counter() - t0
-    mib = sum(os.path.getsize(p) for p in paths.values()) / 2**20
-    t0 = time.perf_counter()
-    back = {name: import_h5_weights(paths[name], *({k: np.zeros_like(v) for k, v in d.items()} for d in weights[name]))
-            for name in ENSEMBLE_ORDER}
-    read_s = time.perf_counter() - t0
+    weights, paths, mib, write_s, (read_s,), back = h5_round_trip(h5_dir)
     for name, (params, state) in weights.items():
         got_p, got_s, report = back[name]
         check(report.complete and report.matched_by_name == len(params) + len(state),
@@ -1152,7 +1192,18 @@ def phase_h5(here: str, work: str):
     layers = {name: len(keras_layer_order(name)) for name in ENSEMBLE_ORDER}
     say("h5", f"wrote the five members' .h5 ({', '.join(H5_FILES[n] for n in ENSEMBLE_ORDER)}; {mib:.1f} MiB, "
               f"{max(layers.values())} layer groups at most) in {write_s:.2f} s ({mib / write_s:.0f} MiB/s), "
-              f"imported them back in {read_s:.2f} s ({mib / read_s:.0f} MiB/s), bit for bit")
+              f"imported them back in {read_s:.2f} s ({mib / read_s:.0f} MiB/s), bit for bit, each file's end "
+              f"checked against its superblock (h5py's default format carries no checksum); on {smi}")
+    cut, short = 3, os.path.join(work, "truncated.h5")
+    with open(paths["hrnet"], "rb") as src, open(short, "wb") as dst:
+        dst.write(src.read()[:-cut])
+    refused = ""
+    try:
+        import_h5_weights(short, *weights["hrnet"])
+    except ValueError as e:
+        refused = str(e)
+    check("truncated HDF5 file" in refused, f"a .h5 cut {cut} bytes short was not refused as truncated ({refused!r})")
+    say("h5", f"{H5_FILES['hrnet']} cut {cut} bytes short is refused: {refused}")
 
     img = scenes()[0]
     saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
@@ -2760,10 +2811,12 @@ def main() -> int:
     import tempfile
 
     with tempfile.TemporaryDirectory(dir=here) as work:
-        for phase in (phase_predict_cli, phase_serve_cli, phase_augment_cli, phase_h5):
+        for phase in (phase_predict_cli, phase_serve_cli, phase_augment_cli):
             sub = os.path.join(work, phase.__name__)
             os.makedirs(sub)
             phase(here, sub)
+        os.makedirs(os.path.join(work, "phase_h5"))
+        phase_h5(here, os.path.join(work, "phase_h5"), smi)
     phase_train_parity()
     train_launches = phase_train_full()
     remat_launches = phase_remat()
@@ -2824,6 +2877,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--enqueue-probe"]:
         sys.path.insert(0, os.getcwd())
         sys.exit(enqueue_probe())
+    if sys.argv[1:2] == ["--h5-probe"]:
+        sys.path.insert(0, os.getcwd())
+        sys.exit(h5_probe())
     if sys.argv[1:2] == ["--learn-child"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(learn_child(sys.argv[2]))

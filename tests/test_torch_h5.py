@@ -9,9 +9,14 @@
 * ``keras_layer_order.json`` is the JAX package's, byte for byte;
 * a port ``Pipeline`` built from an ``.h5`` gives the JAX ``Pipeline``'s
   masks (f32, 32 px tiles);
+* a member's file copied by h5py under ``libver='latest'`` into chunked
+  datasets (gzip, shuffle, fletcher32), once for each chunk index h5py
+  picks, imports equal in both packages; with one chunk byte flipped both
+  importers raise;
 * with ``h5py`` blocked, the port's import, export, ``.h5`` ``Pipeline``
   and ``bdt-convert`` still run (the port reads and writes ``.h5`` with
-  :mod:`utils.hdf5`) and give the JAX package's results on the same files;
+  :mod:`utils.hdf5`) and give the JAX package's results on the same files,
+  a ``libver='latest'`` chunked copy included;
 * ``bdt-convert`` round trips with either package on the other side, and a
   wrong-model ``.npz`` exits with the JAX message.
 
@@ -269,6 +274,92 @@ def test_renamed_xception_resolves_by_order(tmp_path):
     assert_equal_to(p, s, {**src_p, **src_s})
 
 
+def halves(shape):
+    return tuple(max(1, (n + 1) // 2) for n in shape)
+
+
+# h5py's create_dataset options that make it pick each v4 chunk index under libver='latest'
+LATEST_INDEXES = {
+    "single_chunk": lambda shape: dict(chunks=shape),
+    "fixed_array": lambda shape: dict(chunks=halves(shape)),  # odd axes: partial edge chunks
+    "extensible_array": lambda shape: dict(chunks=halves(shape), maxshape=(None,) + shape[1:]),
+    "v2_btree": lambda shape: dict(chunks=halves(shape), maxshape=(None,) * len(shape)),  # 1-d: extensible
+}
+FILTERS = dict(compression="gzip", shuffle=True, fletcher32=True)
+
+
+def copy_latest(src, dst, index):
+    """``src`` copied by h5py under ``libver='latest'``: groups and
+    attributes as they were, every dataset chunked by ``index``'s options
+    and filtered (``"implicit"``: chunks allocated at creation, no filter,
+    which h5py indexes implicitly)."""
+    with h5py.File(src, "r") as s, h5py.File(dst, "w", libver="latest") as d:
+        def copy(sg, dg):
+            for k, v in sg.attrs.items():
+                dg.attrs[k] = v
+            for k in sg:
+                if isinstance(sg[k], h5py.Group):
+                    copy(sg[k], dg.create_group(k))
+                    continue
+                arr = sg[k][()]
+                if index != "implicit":
+                    dg.create_dataset(k, data=arr, **LATEST_INDEXES[index](arr.shape), **FILTERS)
+                    continue
+                dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+                dcpl.set_chunk(halves(arr.shape))
+                dcpl.set_alloc_time(h5py.h5d.ALLOC_TIME_EARLY)
+                h5py.h5d.create(dg.id, k.encode(), h5py.h5t.py_create(arr.dtype), h5py.h5s.create_simple(arr.shape),
+                                dcpl=dcpl).write(h5py.h5s.ALL, h5py.h5s.ALL, arr)
+
+        copy(s, d)
+    return dst
+
+
+def flip_chunk_byte(path):
+    """Flip a byte in the middle of the first chunk of the file's largest
+    dataset; its name."""
+    sizes = []
+    with h5py.File(path, "r") as f:
+        f.visititems(lambda name, obj: sizes.append((obj.size, name)) if isinstance(obj, h5py.Dataset) else None)
+        name = max(sizes)[1]
+        info = f[name].id.get_chunk_info(0)
+    with open(path, "r+b") as fh:
+        fh.seek(info.byte_offset + info.size // 2)
+        b = fh.read(1)
+        fh.seek(-1, 1)
+        fh.write(bytes([b[0] ^ 0x5A]))
+    return name
+
+
+@pytest.mark.parametrize("index", sorted(LATEST_INDEXES) + ["implicit"])
+def test_member_h5_in_latest_chunked_form_imports_equal(tmp_path, index):
+    """hrnet's Keras ``.h5`` from the JAX export, copied by h5py under
+    ``libver='latest'`` into chunked datasets: both packages import it
+    alike, bit for bit.  One chunk byte flipped: both importers raise
+    (h5py's ``OSError``, the port's ``ValueError``), where the chunks carry
+    a Fletcher-32; the unfiltered implicit index has none, and both read
+    the same flipped value."""
+    src_p, src_s = jax_variables(port_registry.init_model("hrnet", torch.Generator().manual_seed(11)))
+    jax_h5, latest = str(tmp_path / "jax.h5"), str(tmp_path / "latest.h5")
+    jax_ckpt.export_h5_weights(jax_h5, src_p, src_s, layer_order=jax_registry.keras_layer_order("hrnet"))
+    copy_latest(jax_h5, latest, index)
+    with open(latest, "rb") as fh:
+        assert fh.read(9)[8] == 3  # superblock v3
+    tgt_p, tgt_s = {k: v + 0.5 for k, v in src_p.items()}, {k: v + 0.25 for k, v in src_s.items()}
+    p, s, report = import_both(latest, tgt_p, tgt_s)
+    assert report.complete and report.matched_by_name == len(src_p) + len(src_s)
+    assert_equal_to(p, s, {**src_p, **src_s})
+    flip_chunk_byte(latest)
+    if index == "implicit":
+        p, s, _ = import_both(latest, tgt_p, tgt_s)
+        assert any(not np.array_equal(v, {**src_p, **src_s}[k]) for k, v in {**p, **s}.items())
+        return
+    with pytest.raises(OSError):
+        jax_ckpt.import_h5_weights(latest, dict(tgt_p), dict(tgt_s))
+    with pytest.raises(ValueError, match="Fletcher-32"):
+        port_ckpt.import_h5_weights(latest, dict(tgt_p), dict(tgt_s))
+
+
 TILE_CFG = Config(tiler=TilerConfig(tile=32, stride=24, overlap=8))
 
 
@@ -291,15 +382,18 @@ def test_port_h5_paths_run_with_h5py_blocked(tmp_path, monkeypatch, capsys):
     """With ``h5py`` blocked, the port's import, export, ``Pipeline`` from
     an ``.h5`` and ``bdt-convert`` run (the port reads and writes the files
     itself) and give what the JAX package gave on the same files before the
-    block."""
+    block, the JAX export's file and its ``libver='latest'`` chunked copy
+    (a fixed array index, gzip, shuffle, fletcher32) alike."""
     src_p, src_s = jax_variables(port_registry.init_model("scse", torch.Generator().manual_seed(5)))
     tgt_p, tgt_s = {k: v + 0.5 for k, v in src_p.items()}, {k: v + 0.25 for k, v in src_s.items()}
     order = jax_registry.keras_layer_order("scse")
-    jax_h5, npz = str(tmp_path / "jax.h5"), str(tmp_path / "src.npz")
+    jax_h5, npz, latest = str(tmp_path / "jax.h5"), str(tmp_path / "src.npz"), str(tmp_path / "latest.h5")
     jax_ckpt.export_h5_weights(jax_h5, src_p, src_s, layer_order=order)
+    copy_latest(jax_h5, latest, "fixed_array")
     port_ckpt.save_variables(npz, src_p, src_s)
     img = np.random.RandomState(6).randint(0, 256, (40, 50, 3), np.uint8)
     want_import = jax_ckpt.import_h5_weights(jax_h5, dict(tgt_p), dict(tgt_s))
+    want_latest = jax_ckpt.import_h5_weights(latest, dict(tgt_p), dict(tgt_s))
     want_mask = JaxPipeline({"scse": jax_h5}, cfg=TILE_CFG, batch_tiles=4, models=("scse",),
                             compute_dtype=jnp.float32).ensemble.predict_masks(img)["scse"]
     cli_h5, want_npz = str(tmp_path / "cli_jax.h5"), str(tmp_path / "want.npz")
@@ -309,6 +403,7 @@ def test_port_h5_paths_run_with_h5py_blocked(tmp_path, monkeypatch, capsys):
 
     monkeypatch.setitem(sys.modules, "h5py", None)
     got_import = port_ckpt.import_h5_weights(jax_h5, dict(tgt_p), dict(tgt_s))
+    got_latest = port_ckpt.import_h5_weights(latest, dict(tgt_p), dict(tgt_s))
     port_h5 = str(tmp_path / "port.h5")
     port_ckpt.export_h5_weights(port_h5, src_p, src_s, layer_order=order)
     round_trip = port_ckpt.import_h5_weights(port_h5, dict(tgt_p), dict(tgt_s))
@@ -321,12 +416,13 @@ def test_port_h5_paths_run_with_h5py_blocked(tmp_path, monkeypatch, capsys):
     assert sys.modules["h5py"] is None
     monkeypatch.undo()
 
-    for got in (got_import, round_trip):
-        for w, g in zip(want_import[:2], got[:2]):
+    for got, want in ((got_import, want_import), (round_trip, want_import), (got_latest, want_latest)):
+        for w, g in zip(want[:2], got[:2]):
             assert list(g) == list(w)
             for k in w:
                 np.testing.assert_array_equal(g[k], w[k], err_msg=k)
-        assert dataclasses.asdict(got[2]) == dataclasses.asdict(want_import[2])
+                assert g[k].dtype == w[k].dtype
+        assert dataclasses.asdict(got[2]) == dataclasses.asdict(want[2])
     np.testing.assert_array_equal(mask, want_mask)
     assert_same_h5(port_h5, jax_h5)
     assert_same_h5(port_cli_h5, cli_h5)

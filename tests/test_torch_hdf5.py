@@ -9,12 +9,21 @@
   links in a fractal heap), fixed-length (null-padded, null-terminated,
   space-padded) and variable-length strings, scalars, the empty float64
   ``(0,)`` and the null dataspace, every integer and float dtype in both
-  byte orders at 0-d and N-d, compact, contiguous, unwritten and (earliest)
-  chunked datasets with gzip, shuffle and fletcher32, dense attributes (up
-  to nested indirect blocks of the fractal heap).
-* What it does not read raises ``ValueError`` naming the feature (a v4
-  chunked layout, a huge fractal-heap object, a soft link, a
-  variable-length string dataset).
+  byte orders at 0-d and N-d, compact, contiguous, unwritten and chunked
+  datasets with gzip, shuffle and fletcher32, dense attributes (up to
+  nested indirect blocks of the fractal heap), and under ``'latest'`` each
+  of the five v4 chunk indexes (single chunk, implicit, fixed array,
+  extensible array, v2 B-tree; paged arrays, unwritten chunks and pages,
+  partial edge chunks filtered or, by the layout's flag, not).
+* It refuses what h5py refuses, with ``ValueError``: a byte flipped in each
+  checksummed structure (a Fletcher-32 chunk; the v2/v3 superblock and its
+  extension, ``OHDR``, ``OCHK``, the v2 B-tree's nodes, the fractal heap's
+  blocks, the fixed and extensible arrays' blocks and pages), a file cut
+  short, a corrupt deflate stream; it reads the byte-swapped Fletcher-32
+  form h5py reads.  Its lookup3 gives Bob Jenkins' published values and its
+  vectorised Fletcher-32 the library's loop.
+* What it does not read raises ``ValueError`` naming the feature (a huge
+  fractal-heap object, a soft link, a variable-length string dataset).
 * The writer's files read in h5py as the same tree, lookups by name
   included (which need sorted symbol-table nodes and B-tree keys), survive
   h5py appending to them, and refuse an attribute past a header message's
@@ -174,12 +183,87 @@ def write_layouts(f, libver):
     g.create_dataset("unwritten", shape=(3, 4), dtype="f4")
     g.create_dataset("unwritten_fill", shape=(3, 4), dtype=">i2", fillvalue=-3)
     g.create_dataset("zero_size", data=np.zeros((0, 3), "f4"))
-    if libver.startswith("earliest"):
-        g.create_dataset("gzip_shuffle", data=values("<f4", (37, 21), 1), chunks=(8, 5), compression="gzip",
-                         shuffle=True)
-        g.create_dataset("fletcher", data=values(">f8", (9, 9), 2), chunks=(4, 4), fletcher32=True)
-        g.create_dataset("sparse", shape=(20, 20), chunks=(8, 8), dtype="i2", fillvalue=7)[0:3, 0:3] = 1
-        g.create_dataset("gzip_3d", data=values("<u2", (5, 6, 7), 3), chunks=(2, 6, 3), compression="gzip")
+    g.create_dataset("gzip_shuffle", data=values("<f4", (37, 21), 1), chunks=(8, 5), compression="gzip",
+                     shuffle=True)
+    g.create_dataset("fletcher", data=values(">f8", (9, 9), 2), chunks=(4, 4), fletcher32=True)
+    g.create_dataset("sparse", shape=(20, 20), chunks=(8, 8), dtype="i2", fillvalue=7)[0:3, 0:3] = 1
+    g.create_dataset("gzip_3d", data=values("<u2", (5, 6, 7), 3), chunks=(2, 6, 3), compression="gzip")
+
+
+def hdf5_library():
+    """The HDF5 library h5py runs on, for what h5py does not expose."""
+    found = glob.glob(os.path.join(os.path.dirname(h5py.__file__), os.pardir, "h5py.libs", "libhdf5-*"))
+    lib = ctypes.CDLL(found[0] if found else ctypes.util.find_library("hdf5"))
+    lib.H5Pset_chunk_opts.argtypes = [ctypes.c_int64, ctypes.c_uint]
+    lib.H5Pset_chunk_opts.restype = ctypes.c_int
+    lib.H5Dget_chunk_index_type.argtypes = [ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
+    lib.H5Dget_chunk_index_type.restype = ctypes.c_int
+    return lib
+
+
+def low_level(g, name, data, chunks, maxshape=None, gzip=False, fletcher=False, whole_edges=False, early=False):
+    """A chunked dataset through the library's own calls: ``whole_edges``
+    stores partial edge chunks unfiltered (``H5Pset_chunk_opts``), ``early``
+    allocates every chunk at creation (the implicit index, unfiltered)."""
+    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+    dcpl.set_chunk(chunks)
+    if gzip:
+        dcpl.set_deflate(4)
+    if fletcher:
+        dcpl.set_fletcher32()
+    if whole_edges:
+        assert hdf5_library().H5Pset_chunk_opts(dcpl.id, 0x0002) >= 0  # H5D_CHUNK_DONT_FILTER_PARTIAL_CHUNKS
+    if early:
+        dcpl.set_alloc_time(h5py.h5d.ALLOC_TIME_EARLY)
+    space = h5py.h5s.create_simple(data.shape, tuple(h5py.h5s.UNLIMITED if m is None else m
+                                                     for m in maxshape or data.shape))
+    ds = h5py.h5d.create(g.id, name.encode(), h5py.h5t.py_create(data.dtype), space, dcpl=dcpl)
+    ds.write(h5py.h5s.ALL, h5py.h5s.ALL, data)
+
+
+def write_chunk_indexes(f, libver):
+    """Under ``'latest'`` every chunk index h5py picks (the name's prefix
+    says which; ``test_latest_writes_every_chunk_index`` holds the library
+    to it), under the older formats the same datasets in v1 B-trees."""
+    g = f.create_group("chunk_indexes")
+    a = values("<f4", (37, 21), 4)  # (8, 5) chunks: partial edge chunks on both axes
+    g.create_dataset("single", data=a, chunks=a.shape)
+    g.create_dataset("single_filtered", data=a, chunks=a.shape, compression="gzip", shuffle=True, fletcher32=True)
+    low_level(g, "implicit", a, (8, 5), early=True)
+    low_level(g, "implicit_larger_max", a, (8, 5), maxshape=(50, 30), early=True)
+    g.create_dataset("fixed", data=a, chunks=(8, 5))
+    g.create_dataset("fixed_filtered", data=a, chunks=(8, 5), compression="gzip", shuffle=True, fletcher32=True)
+    g.create_dataset("fixed_larger_max", data=a, chunks=(8, 5), maxshape=(50, 30), compression="gzip")
+    low_level(g, "fixed_whole_edges", a, (8, 5), gzip=True, fletcher=True, whole_edges=True)
+    g.create_dataset("fixed_sparse", shape=(20, 20), chunks=(8, 8), dtype="i2", fillvalue=7)[0:3, 9:12] = 1
+    g.create_dataset("fixed_empty", shape=(0, 4), chunks=(2, 2), maxshape=(6, 4), dtype="f4")
+    g.create_dataset("earray_empty", shape=(0, 4), chunks=(2, 2), maxshape=(None, 4), dtype="f4")
+    paged = g.create_dataset("fixed_paged", shape=(3000,), chunks=(1,), dtype="u1", fillvalue=9)  # 3 pages of 1024
+    paged[0:10], paged[2500:2510] = np.arange(10), np.arange(10, 20)  # the middle page never written
+    g.create_dataset("fixed_paged_filtered", data=np.arange(2100, dtype="<u2"), chunks=(2,), fletcher32=True)
+    g.create_dataset("earray", data=a, chunks=(8, 5), maxshape=(None, 21))
+    g.create_dataset("earray_second_axis", data=a, chunks=(8, 5), maxshape=(37, None), compression="gzip",
+                     shuffle=True, fletcher32=True)
+    g.create_dataset("earray_middle_axis", data=values("<i4", (5, 6, 7), 5), chunks=(2, 4, 3),
+                     maxshape=(5, None, 7))
+    low_level(g, "earray_whole_edges", a, (8, 5), maxshape=(None, 21), gzip=True, whole_edges=True)
+    sparse = g.create_dataset("earray_sparse", shape=(1200,), chunks=(3,), maxshape=(None,), dtype=">i8",
+                              fillvalue=-5)
+    sparse[0:4], sparse[900:990] = np.arange(4), np.arange(90)  # a super block; data blocks never written
+    # a data block of 2048 elements (super block 13, past the first 131060 chunks) in pages of 1024, one written
+    far = g.create_dataset("earray_paged", shape=(140000,), chunks=(1,), maxshape=(None,), dtype="u1", fillvalue=3)
+    far[0:6], far[131100] = np.arange(6), 77
+    g.create_dataset("btree2", data=a, chunks=(8, 5), maxshape=(None, None))
+    g.create_dataset("btree2_filtered", data=values("<u2", (5, 6, 7), 3), chunks=(2, 2, 3),
+                     maxshape=(None, None, None), compression="gzip", fletcher32=True)
+    g.create_dataset("btree2_deep", data=np.arange(3000, dtype="<i2").reshape(60, 50), chunks=(2, 2),
+                     maxshape=(None, None))  # 750 records: internal nodes
+    g.create_dataset("btree2_sparse", shape=(30, 30), chunks=(4, 4), maxshape=(None, None), dtype="f8",
+                     fillvalue=2.5)[10:14, 3:5] = 1.0
+    # Fletcher-32 on odd-length chunks and on sums that are multiples of 65535
+    g.create_dataset("fletcher_odd", data=np.arange(23, dtype="u1"), chunks=(5,), fletcher32=True)
+    g.create_dataset("fletcher_ones", data=np.full((16,), 0xFF, "u1"), chunks=(8,), fletcher32=True)
+    g.create_dataset("fletcher_zeros", data=np.zeros(8, "u1"), chunks=(4,), fletcher32=True)
 
 
 def write_dense_attrs(f):
@@ -202,6 +286,7 @@ WRITERS = {
     "dtypes": lambda f, libver: write_dtypes(f),
     "layouts": write_layouts,
     "dense_attrs": lambda f, libver: write_dense_attrs(f),
+    "chunk_indexes": write_chunk_indexes,
 }
 
 
@@ -217,6 +302,33 @@ def test_reader_equals_h5py(tmp_path, libver, feature):
     assert head[at:at + 8] == hdf5.SIGNATURE
     assert head[at + 8] == {"earliest_v1": 1, "v108": 2, "latest": 3}.get(libver, 0)  # the superblock's version
     check_reader(path)
+
+
+CHUNK_INDEX_TYPES = {"single": 1, "implicit": 2, "fixed": 3, "fletcher": 3, "earray": 4, "btree2": 5}
+
+
+def test_latest_writes_every_chunk_index(tmp_path, monkeypatch):
+    """Under ``'latest'`` the library picks the index each dataset's name
+    says (``H5D_chunk_index_t``), and reading the file goes through every
+    structure of the five, pages included."""
+    path = str(tmp_path / "f.h5")
+    lib = hdf5_library()
+    with h5py.File(path, "w", libver="latest") as f:
+        write_chunk_indexes(f, "latest")
+        for name, ds in f["chunk_indexes"].items():
+            kind = ctypes.c_int(-1)
+            assert lib.H5Dget_chunk_index_type(ds.id.id, ctypes.byref(kind)) >= 0
+            assert kind.value == CHUNK_INDEX_TYPES[name.split("_")[0]], name
+    seen = set()
+    verify = hdf5._Store.verify
+    monkeypatch.setattr(hdf5._Store, "verify", lambda self, addr, size, what, zeroed=None: (
+        seen.add(what), verify(self, addr, size, what, zeroed))[1])
+    check_reader(path)
+    assert seen >= {"fixed array header (FAHD)", "fixed array data block (FADB)", "fixed array data block page",
+                    "extensible array header (EAHD)", "extensible array index block (EAIB)",
+                    "extensible array super block (EASB)", "extensible array data block (EADB)",
+                    "extensible array data block page", "v2 B-tree header (BTHD)", "v2 B-tree node (BTIN)",
+                    "v2 B-tree node (BTLF)", "object header (OHDR)", "superblock (version 3)"}, seen
 
 
 def test_reader_paths_and_mapping(tmp_path):
@@ -251,8 +363,7 @@ def test_reader_refuses_what_it_does_not_read(tmp_path):
     with hdf5.File(path) as f:
         with pytest.raises(ValueError, match="variable-length string datasets"):
             f["vlen"][()]
-        with pytest.raises(ValueError, match="v4 chunked layout"):
-            f["chunked"][()]
+        np.testing.assert_array_equal(f["chunked"][()], np.arange(100.0).reshape(10, 10))  # read since v4 indexes
         with pytest.raises(ValueError, match="huge fractal-heap objects"):
             f["huge"].attrs
         with pytest.raises(ValueError, match="soft and external links"):
@@ -263,6 +374,229 @@ def test_reader_refuses_what_it_does_not_read(tmp_path):
         bad.write_bytes(bad.read_bytes() if bad == empty else b"not an HDF5 file at all" * 40)
         with pytest.raises(ValueError, match="not an HDF5 file"):
             hdf5.File(str(bad))
+
+
+# -- what h5py refuses ------------------------------------------------------------------
+def fletcher32_loop(data: bytes) -> int:
+    """The library's ``H5_checksum_fletcher32``, loop for loop."""
+    sum1 = sum2 = 0
+    n, i = len(data) // 2, 0
+    while n:
+        t = min(n, 360)
+        n -= t
+        for _ in range(t):
+            sum1 += (data[i] << 8) | data[i + 1]
+            i += 2
+            sum2 += sum1
+        sum1, sum2 = (sum1 & 0xFFFF) + (sum1 >> 16), (sum2 & 0xFFFF) + (sum2 >> 16)
+    if len(data) % 2:
+        sum1 += data[i] << 8
+        sum2 += sum1
+        sum1, sum2 = (sum1 & 0xFFFF) + (sum1 >> 16), (sum2 & 0xFFFF) + (sum2 >> 16)
+    sum1, sum2 = (sum1 & 0xFFFF) + (sum1 >> 16), (sum2 & 0xFFFF) + (sum2 >> 16)
+    return (sum2 << 16) | sum1
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 719, 720, 721, 4097])
+def test_checksums_are_the_librarys(n, monkeypatch):
+    """Fletcher-32 equals the library's loop on random bytes, on all-0xff
+    bytes (sums at multiples of 65535: 0xffff, not 0) and on zeros, odd
+    lengths included, across numpy blocks too; lookup3 gives Bob Jenkins'
+    published values."""
+    rng = np.random.RandomState(n)
+    cases = [rng.randint(0, 256, n).astype(np.uint8).tobytes(), b"\xff" * n, bytes(n),
+             rng.randint(250, 256, n).astype(np.uint8).tobytes()]
+    want = [fletcher32_loop(data) for data in cases]
+    assert [hdf5.fletcher32(data) for data in cases] == want
+    monkeypatch.setattr(hdf5, "_FLETCHER_BLOCK", 7)  # many numpy blocks
+    assert [hdf5.fletcher32(data) for data in cases] == want
+    assert fletcher32_loop(b"\xff" * 4) == 0xFFFFFFFF and fletcher32_loop(bytes(4)) == 0
+    assert hdf5.lookup3(b"") == 0xDEADBEEF
+    assert hdf5.lookup3(b"Four score and seven years ago") == 0x17770551
+
+
+def h5py_contents(path):
+    """``(object path, is a dataset, attribute names)`` of every object."""
+    out = []
+    with h5py.File(path, "r") as f:
+        f.visititems(lambda name, obj: out.append((name, isinstance(obj, h5py.Dataset), list(obj.attrs))))
+        out.append(("/", False, list(f.attrs)))
+    return out
+
+
+def read_everything_h5py(path, contents):
+    """Every object, dataset and attribute, looked up by name: the library
+    (1.14.6) crashes iterating over a v2 B-tree whose internal node fails
+    its checksum, where a lookup raises."""
+    with h5py.File(path, "r") as f:
+        for name, is_dataset, attrs in contents:
+            obj = f[name]
+            if is_dataset:
+                obj[()]
+            for a in attrs:
+                obj.attrs[a]
+
+
+def read_everything_port(path):
+    def walk(g):
+        dict(g.attrs)
+        for k in g:
+            if isinstance(g[k], hdf5.Group):
+                walk(g[k])
+            else:
+                g[k][()]
+                dict(g[k].attrs)
+
+    with hdf5.File(path) as f:
+        walk(f)
+
+
+def first_message(data, addr):
+    """The position of the first message's type in the ``OHDR`` at ``addr``."""
+    flags = data[addr + 5]
+    return addr + 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0) + (1 << (flags & 3))
+
+
+def superblock_address(which):
+    return lambda data, path: int.from_bytes(data[12 + 8 * which:20 + 8 * which], "little")
+
+
+def chunk_byte(name):
+    def at(data, path):
+        with h5py.File(path, "r") as f:
+            info = f[name].id.get_chunk_info(0)
+        return info.byte_offset + info.size // 2
+    return at
+
+
+def signature(sig, plus, last=False):
+    return lambda data, path: (data.rindex(sig) if last else data.index(sig)) + plus
+
+
+def write_fletcher(f):
+    f.create_dataset("d", data=values(">f8", (9, 9), 2), chunks=(4, 4), fletcher32=True)
+
+
+def write_continued(f):
+    ds = f.create_dataset("d", data=np.arange(10.0))
+    for i in range(7):  # compact (at most 8), added after the header was sized: a continuation chunk
+        ds.attrs[f"x{i}"] = np.full(30, i, "<f8")
+
+
+def write_dataset(*args, **kwargs):
+    return lambda f: f.create_dataset("d", *args, **kwargs)
+
+
+def write_fixed_paged(f):
+    f.create_dataset("d", shape=(3000,), chunks=(1,), dtype="u1")[:] = np.arange(3000) % 251
+
+
+def write_earray_paged(f):
+    f.create_dataset("d", shape=(140000,), chunks=(1,), maxshape=(None,), dtype="u1")[131100] = 7
+
+
+def write_earray_super(f):
+    f.create_dataset("d", shape=(1200,), chunks=(3,), maxshape=(None,), dtype="<i4")[900:990] = np.arange(90)
+
+
+ROOT = superblock_address(3)  # v2/v3: base, extension, end of file, root
+# case: (libver, what h5py writes, where a byte flips, what the port's error says)
+CORRUPT = {
+    "fletcher32_chunk_earliest": ("earliest", write_fletcher, chunk_byte("d"), "Fletcher-32"),
+    "fletcher32_chunk_latest": ("latest", write_fletcher, chunk_byte("d"), "Fletcher-32"),
+    "deflate_chunk": ("latest", write_dataset(data=values("<f4", (40, 40), 1), chunks=(20, 20), compression="gzip"),
+                      chunk_byte("d"), "deflate"),
+    "superblock_v2": ("v108", write_keras, lambda data, path: 43, r"superblock \(version 2\).*checksum"),
+    "superblock_v3": ("latest", write_keras, lambda data, path: 43, r"superblock \(version 3\).*checksum"),
+    "superblock_extension": ("latest_paged_space", write_keras,
+                             lambda data, path: first_message(data, superblock_address(1)(data, path)),
+                             r"OHDR.*checksum"),
+    "OHDR": ("latest", write_keras, lambda data, path: first_message(data, ROOT(data, path)), r"OHDR.*checksum"),
+    "OCHK": ("latest", write_continued, signature(b"OCHK", 4), r"OCHK.*checksum"),
+    "BTHD": ("latest", write_groups, signature(b"BTHD", 6), r"BTHD.*checksum"),
+    "BTIN": ("latest", write_groups, signature(b"BTIN", 6), r"BTIN.*checksum"),
+    "BTLF": ("latest", write_groups, signature(b"BTLF", 6), r"BTLF.*checksum"),
+    "FRHP": ("latest", write_dense_attrs, signature(b"FRHP", 6), r"FRHP.*checksum"),
+    "FHIB": ("latest", write_dense_attrs, signature(b"FHIB", 6), r"FHIB.*checksum"),
+    "FHDB": ("latest", write_dense_attrs, signature(b"FHDB", 40), r"FHDB.*checksum"),
+    "FAHD": ("latest", write_dataset(data=values("<f4", (40, 40), 1), chunks=(8, 8)), signature(b"FAHD", 6),
+             r"FAHD.*checksum"),
+    "FADB": ("latest", write_dataset(data=values("<f4", (40, 40), 1), chunks=(8, 8)), signature(b"FADB", 20),
+             r"FADB.*checksum"),
+    "FADB_page": ("latest", write_fixed_paged, signature(b"FADB", 19 + 8), "fixed array data block page.*checksum"),
+    "EAHD": ("latest", write_earray_super, signature(b"EAHD", 6), r"EAHD.*checksum"),
+    "EAIB": ("latest", write_earray_super, signature(b"EAIB", 14), r"EAIB.*checksum"),
+    "EASB": ("latest", write_earray_super, signature(b"EASB", 6), r"EASB.*checksum"),
+    "EADB": ("latest", write_earray_super, signature(b"EADB", 6), r"EADB.*checksum"),
+    "EADB_page": ("latest", write_earray_paged, signature(b"EADB", 22 + 40 * 8, last=True),
+                  "extensible array data block page.*checksum"),
+    "btree2_chunk_index": ("latest", write_dataset(data=values("<f4", (40, 40), 1), chunks=(8, 8),
+                                                   maxshape=(None, None)), signature(b"BTLF", 6), r"BTLF.*checksum"),
+}
+
+
+def h5py_file(path, libver):
+    if libver == "latest_paged_space":  # a superblock extension: the paged file-space strategy, kept
+        return h5py.File(path, "w", libver="latest", fs_strategy="page", fs_persist=True)
+    return open_h5py(path, libver)
+
+
+@pytest.mark.parametrize("case", sorted(CORRUPT))
+def test_corrupt_structure_refused_by_both(tmp_path, case):
+    """One byte flipped inside a checksummed structure (or a chunk): h5py
+    raises, and the port raises ``ValueError`` naming it; intact, both read
+    the file alike."""
+    libver, write, locate, said = CORRUPT[case]
+    path = str(tmp_path / "f.h5")
+    with h5py_file(path, libver) as f:
+        write(f)
+    check_reader(path)
+    contents = h5py_contents(path)
+    data = bytearray(open(path, "rb").read())
+    data[locate(bytes(data), path)] ^= 0x5A
+    open(path, "wb").write(bytes(data))
+    with pytest.raises((OSError, KeyError)):
+        read_everything_h5py(path, contents)
+    with pytest.raises(ValueError, match=said):
+        read_everything_port(path)
+
+
+@pytest.mark.parametrize("cut", [1, 100])
+@pytest.mark.parametrize("writer", ["earliest", "earliest_userblock", "latest", "port"])
+def test_truncated_file_refused_by_both(tmp_path, writer, cut):
+    """A file shorter than the end of file its superblock records: the
+    library refuses it at open, and so does the port, whatever is read."""
+    path = str(tmp_path / "f.h5")
+    if writer == "port":
+        with hdf5.Writer(path) as f:
+            fill_writer(f)
+    else:
+        with open_h5py(path, writer) as f:
+            write_keras(f)
+    check_reader(path)
+    data = open(path, "rb").read()
+    open(path, "wb").write(data[:-cut])
+    with pytest.raises(OSError, match="truncated file"):
+        h5py.File(path, "r")
+    with pytest.raises(ValueError, match="truncated HDF5 file"):
+        hdf5.File(path)
+
+
+@pytest.mark.parametrize("libver", ["earliest", "latest"])
+def test_byte_swapped_fletcher32_is_read(tmp_path, libver):
+    """The library also takes a chunk's Fletcher-32 with each 16-bit half
+    byte-swapped (files of HDF5 1.6.2 and before): so does the port."""
+    path = str(tmp_path / "f.h5")
+    with open_h5py(path, libver) as f:
+        f.create_dataset("d", data=values("<i2", (30, 7), 3), chunks=(4, 7), fletcher32=True)
+        infos = [f["d"].id.get_chunk_info(i) for i in range(f["d"].id.get_num_chunks())]
+    data = bytearray(open(path, "rb").read())
+    for info in infos:
+        end = info.byte_offset + info.size
+        assert int.from_bytes(data[end - 4:end], "little") == fletcher32_loop(bytes(data[info.byte_offset:end - 4]))
+        data[end - 4:end] = bytes([data[end - 3], data[end - 4], data[end - 1], data[end - 2]])
+    open(path, "wb").write(bytes(data))
+    check_reader(path)
 
 
 # -- the writer -------------------------------------------------------------------------
