@@ -46,6 +46,7 @@ from building_detection_tpu_torch.core.config import TilerConfig
 from building_detection_tpu_torch.core.module import cast_params, set_int8
 from building_detection_tpu_torch.parallel.mesh import predictor_devices
 from building_detection_tpu_torch.ops import tiling as T
+from building_detection_tpu_torch.utils import profiling
 
 # Tiles per dispatch.  Chosen from the batch sweep of ``chip_smoke.py`` on
 # an H100 (PERF.md); the TPU's 128 does not carry over.
@@ -76,14 +77,16 @@ def _unpack_bitplanes(planes: np.ndarray, width: int) -> np.ndarray:
     return np.unpackbits(planes, axis=-1)[..., :width]
 
 
-def upload_pinned(host: torch.Tensor, device: torch.device, stream) -> Tuple[torch.Tensor, torch.Tensor]:
+def upload_pinned(host: torch.Tensor, device: torch.device, stream,
+                  span: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``host`` on the CUDA ``device``, copied from pinned memory on the side
     ``stream``; the current stream waits for the copy, and ``record_stream``
     keeps the allocator from reusing the device buffer before the current
     stream's work on it is done.  Returns (device tensor, pinned host
-    tensor): the caller keeps the latter alive until its copy has run."""
+    tensor): the caller keeps the latter alive until its copy has run.
+    ``span`` names the copy's device span (:func:`utils.profiling.device_span`)."""
     host = host.pin_memory()
-    with torch.cuda.stream(stream):
+    with torch.cuda.stream(stream), profiling.device_span(span, stream=stream):
         on_device = host.to(device, non_blocking=True)
     compute = torch.cuda.current_stream(device)
     compute.wait_stream(stream)
@@ -201,6 +204,19 @@ class FusedEnsemblePredictor:
     data axis (:func:`process_shard_forward`), ``batch_tiles`` a rank, on
     this rank's device (the mesh's, else ``device``); every rank runs every
     call with the same scenes and returns every mask.
+
+    While recording is on (:mod:`utils.profiling`) a call records host spans
+    ``fused.call`` (the whole call, one id), ``fused.plan`` (planning and
+    grouping), ``fused.stage``, ``fused.upload`` (pin and enqueue of the
+    upload), ``fused.launch`` (the device half's enqueue),
+    ``fused.fetch_wait`` and ``fused.unpack``; on a card, device spans
+    ``fused.dispatch`` (a group, from the wait for its upload to its fetch
+    copy), ``fused.forward`` (a chunk's member stages), ``fused.member.<name>``
+    and ``fused.h2d`` (the upload stream's copy), resolved when the group is
+    fetched; and counters ``fused.dispatches``, ``fused.chunks``,
+    ``fused.tiles`` (tiles forwarded), ``fused.tile_slots`` (``batch_tiles``
+    a chunk) and ``fused.scenes``.  Over a mesh the device spans time the
+    home device only.
     """
 
     # Scene-group sizes: quantizing bounds the shapes a serving batcher
@@ -248,11 +264,15 @@ class FusedEnsemblePredictor:
     def _member_stage(self, bit: int, name: str) -> Stage:
         """The :func:`shard_forward` stage of member ``name``: its class-1
         argmax bit (taken after the softmax: ties resolve to class 0), from
-        the replica on the tiles' device, ORed in at ``bit``."""
+        the replica on the tiles' device, ORed in at ``bit``; on the home
+        device, in the device span ``fused.member.<name>``."""
+        label = f"fused.member.{name}"
+
         def stage(tiles: torch.Tensor, packed: Optional[torch.Tensor]) -> torch.Tensor:
-            probs = self.replicas[tiles.device][name](tiles)
-            bits = (torch.argmax(probs, dim=-1) == 1).to(torch.uint8) << bit
-            return bits if packed is None else packed.bitwise_or_(bits)
+            with profiling.device_span(label, tiles.device if tiles.device == self.device else None):
+                probs = self.replicas[tiles.device][name](tiles)
+                bits = (torch.argmax(probs, dim=-1) == 1).to(torch.uint8) << bit
+                return bits if packed is None else packed.bitwise_or_(bits)
         return stage
 
     def member_bits(self, tiles: torch.Tensor) -> torch.Tensor:
@@ -296,7 +316,11 @@ class FusedEnsemblePredictor:
                 (chunk[:, 1, None] + ar)[:, :, None],
                 (chunk[:, 2, None] + ar)[:, None, :],
             ]
-            packed = self.sharded_bits(tiles)
+            profiling.count("fused.chunks")
+            profiling.count("fused.tiles", tiles.shape[0])
+            profiling.count("fused.tile_slots", self.batch_tiles)
+            with profiling.device_span("fused.forward", self.device):
+                packed = self.sharded_bits(tiles)
             # per-bit OR over overlapping tiles == the reference's
             # accumulate-then->=1 per model (predict.py:113-114)
             for i, (s, r, c) in enumerate(origins[start : start + self.batch_tiles]):
@@ -330,19 +354,27 @@ class FusedEnsemblePredictor:
     @torch.inference_mode()
     def _dispatch(self, images: List[np.ndarray], plan: T.TilePlan):
         """Enqueue one group; returns what ``_fetch`` needs."""
-        staged, hw = self._stage(images, plan)
+        profiling.count("fused.dispatches")
+        profiling.count("fused.scenes", len(images))
+        with profiling.span("fused.stage"):
+            staged, hw = self._stage(images, plan)
         host = torch.from_numpy(staged)
         if not self._cuda:
-            return self._run_group(host, hw, plan), None, host
-        imgs, host = upload_pinned(host, self.device, self._upload)
-        out, done = fetch_pinned(self._run_group(imgs, hw, plan), self.device)
+            with profiling.span("fused.launch"):
+                return self._run_group(host, hw, plan), None, host
+        with profiling.span("fused.upload"):
+            imgs, host = upload_pinned(host, self.device, self._upload, span="fused.h2d")
+        with profiling.span("fused.launch"), profiling.device_span("fused.dispatch", self.device):
+            out, done = fetch_pinned(self._run_group(imgs, hw, plan), self.device)
         return out, done, host  # `host` stays alive until its upload is done
 
     @staticmethod
     def _fetch(pending) -> np.ndarray:
         out, done, _ = pending
         if done is not None:
-            done.synchronize()
+            with profiling.span("fused.fetch_wait"):
+                done.synchronize()
+            profiling.resolve()
         return out.numpy()
 
     # -- host side ---------------------------------------------------------
@@ -365,6 +397,32 @@ class FusedEnsemblePredictor:
         if plan.num_tiles and self.cfg.bucket_sizes:
             plan = T.bucket_plan(plan, self.cfg)
         return plan
+
+    def _group(self, images) -> Tuple[list, list]:
+        """The dispatches of a call, ``(scene indices, plan)`` each, and its
+        scenes with no tile, ``(index, (h, w))`` each."""
+        groups: Dict[tuple, list] = {}
+        plans = []
+        for idx, img in enumerate(images):
+            plan = self._plan(img)
+            plans.append(plan)
+            if plan.num_tiles == 0:
+                continue
+            # plan.origins must be in the key: bucketing pads different real
+            # tile grids to one count, and a group runs ONE origin list.
+            key = (plan.canvas_h, plan.canvas_w, plan.origins,
+                   img.shape[:2] if not self.cfg.bucket_sizes else None)
+            groups.setdefault(key, []).append(idx)
+
+        parts = []  # (scene indices, plan) per dispatch
+        for idxs in groups.values():
+            plan = plans[idxs[0]]
+            start = 0
+            for size in self._split_group(len(idxs), self._group_size(plan.num_tiles)):
+                parts.append((idxs[start : start + size], plan))
+                start += size
+        degenerate = [(i, img.shape[:2]) for i, img in enumerate(images) if plans[i].num_tiles == 0]
+        return parts, degenerate
 
     def _masks_from_planes(self, planes: np.ndarray, sizes) -> list:
         """Unpack fetched bitplanes into per-scene {0,255} mask dicts."""
@@ -389,27 +447,14 @@ class FusedEnsemblePredictor:
         memory on large batches.  Yield order is dispatch order, not input
         order: use the index.  Scenes with no tile come last, blank.
         """
-        groups: Dict[tuple, list] = {}
-        plans = []
-        for idx, img in enumerate(images):
-            plan = self._plan(img)
-            plans.append(plan)
-            if plan.num_tiles == 0:
-                continue
-            # plan.origins must be in the key: bucketing pads different real
-            # tile grids to one count, and a group runs ONE origin list.
-            key = (plan.canvas_h, plan.canvas_w, plan.origins,
-                   img.shape[:2] if not self.cfg.bucket_sizes else None)
-            groups.setdefault(key, []).append(idx)
-
-        parts = []  # (scene indices, plan) per dispatch
-        for idxs in groups.values():
-            plan = plans[idxs[0]]
-            start = 0
-            for size in self._split_group(len(idxs), self._group_size(plan.num_tiles)):
-                parts.append((idxs[start : start + size], plan))
-                start += size
-        degenerate = [(i, img.shape[:2]) for i, img in enumerate(images) if plans[i].num_tiles == 0]
+        call = profiling.span("fused.call", root=True)
+        call.__enter__()
+        try:
+            with profiling.span("fused.plan"):
+                parts, degenerate = self._group(images)
+        except BaseException:
+            call.__exit__(None, None, None)
+            raise
 
         def dispatch(part, plan):
             imgs = [images[i] for i in part]
@@ -418,18 +463,23 @@ class FusedEnsemblePredictor:
         max_in_flight = max(1, max_in_flight)
 
         def run():
-            pending = [dispatch(*p) for p in parts[:max_in_flight]]
-            next_up = max_in_flight
-            while pending:
-                part, handle, sizes = pending.pop(0)
-                if next_up < len(parts):  # keep the window full
-                    pending.append(dispatch(*parts[next_up]))
-                    next_up += 1
-                masks = self._masks_from_planes(self._fetch(handle), sizes)
-                yield from zip(part, masks)
-            for idx, (h, w) in degenerate:
-                zero = np.zeros((h, w), np.uint8)
-                yield idx, {name: zero.copy() for name in self.names}
+            try:
+                pending = [dispatch(*p) for p in parts[:max_in_flight]]
+                next_up = max_in_flight
+                while pending:
+                    part, handle, sizes = pending.pop(0)
+                    if next_up < len(parts):  # keep the window full
+                        pending.append(dispatch(*parts[next_up]))
+                        next_up += 1
+                    planes = self._fetch(handle)
+                    with profiling.span("fused.unpack"):
+                        masks = self._masks_from_planes(planes, sizes)
+                    yield from zip(part, masks)
+                for idx, (h, w) in degenerate:
+                    zero = np.zeros((h, w), np.uint8)
+                    yield idx, {name: zero.copy() for name in self.names}
+            finally:
+                call.__exit__(None, None, None)
 
         return run()
 

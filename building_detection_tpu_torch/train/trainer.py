@@ -95,6 +95,7 @@ from building_detection_tpu_torch.train.losses import LOSSES
 from building_detection_tpu_torch.train.metrics import all_metrics
 from building_detection_tpu_torch.train.optim import KerasAdam
 from building_detection_tpu_torch.train.schedule import warmup_cosine
+from building_detection_tpu_torch.utils import profiling
 
 
 def make_targets(
@@ -231,24 +232,41 @@ class Trainer:
         """The one step body of both paths, on this rank's rows: augment,
         normalise, targets, forward in train mode, loss, gradients (averaged
         over the ranks), Keras Adam; the metrics are of the forward before
-        the update, over the global batch."""
-        cfg = self.cfg
+        the update, over the global batch.
+
+        While recording is on (:mod:`utils.profiling`) the step is the host
+        and device span ``train.step`` (one id a step), with children
+        ``train.targets``, ``train.forward`` (normalise, forward, loss),
+        ``train.backward`` (gradients and their all-reduce),
+        ``train.optimizer`` (Keras Adam) and ``train.metrics``, and counts
+        ``train.steps`` and ``train.images`` (this rank's rows)."""
+        with profiling.span("train.step", self.device, root=True):
+            return self._step_body(images_u8, labels_u8, step)  # its graph and gradients are freed in the span
+
+    def _step_body(self, images_u8: torch.Tensor, labels_u8: torch.Tensor, step: int) -> Metrics:
+        cfg, dev = self.cfg, self.device
+        profiling.count("train.steps")
+        profiling.count("train.images", images_u8.shape[0])
         if self.augment_cfg is not None:
             images_u8, labels_u8 = augment_batch(
                 images_u8, labels_u8, self.augment_seed, step, self.augment_cfg,
                 shard=(self.mesh.data_index, self.mesh.data),
             )
-        x = T.normalize(images_u8, dtype=self.compute_dtype)
-        y_true = make_targets(labels_u8, cfg, cfg.label_smooth)
-        self.model.train()
-        probs = self.model(x).float()
-        loss = self.loss_fn(y_true, probs)
-        params = self.optimizer.params
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True, materialize_grads=True)
-        if self.mesh.group is not None:
-            grads = collectives.all_reduce_mean(grads, self.mesh.group)
-        self.optimizer.step(dict(zip(params, grads)))
-        with torch.no_grad():
+        with profiling.span("train.targets", dev):
+            y_true = make_targets(labels_u8, cfg, cfg.label_smooth)
+        with profiling.span("train.forward", dev):
+            x = T.normalize(images_u8, dtype=self.compute_dtype)
+            self.model.train()
+            probs = self.model(x).float()
+            loss = self.loss_fn(y_true, probs)
+        with profiling.span("train.backward", dev):
+            params = self.optimizer.params
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True, materialize_grads=True)
+            if self.mesh.group is not None:
+                grads = collectives.all_reduce_mean(grads, self.mesh.group)
+        with profiling.span("train.optimizer", dev):
+            self.optimizer.step(dict(zip(params, grads)))
+        with profiling.span("train.metrics", dev), torch.no_grad():
             metrics = all_metrics(y_true, probs, self.mesh.group)
             metrics["loss"] = self._global_loss(loss.detach())
         return metrics
@@ -257,7 +275,9 @@ class Trainer:
         metrics = self._train_step(self._to_device(images), self._to_device(labels), self.step)
         self.step += 1
         if fetch_metrics:
-            return {k: float(v) for k, v in metrics.items()}
+            fetched = {k: float(v) for k, v in metrics.items()}
+            profiling.resolve()
+            return fetched
         return metrics
 
     def train_on_batch(self, images_u8, labels_u8, fetch_metrics: bool = True):
@@ -330,7 +350,9 @@ class Trainer:
         self.step += n
         metrics = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
         if fetch_metrics:
-            return {k: v.cpu().numpy() for k, v in metrics.items()}
+            fetched = {k: v.cpu().numpy() for k, v in metrics.items()}
+            profiling.resolve()
+            return fetched
         return metrics
 
     # -- fit loops --------------------------------------------------------------
@@ -498,6 +520,7 @@ class Trainer:
             for k in steps[0]:
                 for v in torch.stack([m[k] for m in steps]).tolist():  # one wait per epoch
                     agg[k] = agg.get(k, 0.0) + v
+            profiling.resolve()
             agg = {k: v / self.steps_per_epoch for k, v in agg.items()}
             if val_iter is not None and val_steps:
                 vagg: Dict[str, float] = {}

@@ -2658,14 +2658,18 @@ def phase_morph(smi: str) -> None:
 
 def device_rows(prof) -> list:
     """The device rows of a ``torch.profiler`` run (kernels, copies, sets):
-    ``(name, count, device ms)``, longest first.  One pass over the events:
-    ``key_averages()`` would also total the ~10^5 CPU events of a few train
-    steps, which takes seconds."""
+    ``(name, count, device ms)``, longest first, less the device side of
+    host annotations (the program's ``train.*`` spans), which carry the
+    names of host events.  Two passes over the events: ``key_averages()``
+    would also total the ~10^5 CPU events of a few train steps, which takes
+    seconds."""
     from torch.autograd import DeviceType
 
+    events = prof.events()
+    host = {e.name for e in events if e.device_type != DeviceType.CUDA}
     rows = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name not in host:
             count, ms = rows.get(e.name, (0, 0.0))
             rows[e.name] = (count + 1, ms + e.time_range.elapsed_us() / 1e3)
     return sorted(((k, c, ms) for k, (c, ms) in rows.items()), key=lambda r: -r[2])
