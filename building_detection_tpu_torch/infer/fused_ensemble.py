@@ -12,6 +12,14 @@ groups' uploads and launches overlap earlier groups' compute and the host's
 post-processing.  :meth:`FusedEnsemblePredictor.predict_vote` is the plain
 vote of ``bdt-predict --fast-vote``.
 
+Below f32 (the bf16 serving default) each member's BatchNorms that take a
+convolution's output are folded into that convolution when the predictor
+takes the member (:func:`nn.fold.fold_batchnorm`): computed in f32 from the
+f32 weights, then rounded to the compute dtype once, which removes three
+elementwise passes a BN site from every forward.  The fold reorders the
+roundings, not the mathematics, so an f32 predictor stays unfolded: the
+parity tests hold it to the JAX package bit for bit.
+
 Tile data parallelism (``mesh=``, a mesh of local devices from
 :func:`parallel.mesh.make_mesh`) is :func:`shard_forward`: each chunk of
 tiles is cut into one contiguous part per shard, in the row order JAX's
@@ -44,6 +52,7 @@ from torch import nn
 
 from building_detection_tpu_torch.core.config import TilerConfig
 from building_detection_tpu_torch.core.module import cast_params, set_int8
+from building_detection_tpu_torch.nn.fold import bn_sites, fold_batchnorm
 from building_detection_tpu_torch.parallel.mesh import predictor_devices
 from building_detection_tpu_torch.ops import tiling as T
 from building_detection_tpu_torch.utils import profiling
@@ -187,9 +196,11 @@ class FusedEnsemblePredictor:
     ``members`` maps name -> model (``(B, H, W, 3)`` -> ``(B, H, W, 2)``
     softmax).  The predictor takes ownership: it moves each model to
     ``device`` (the card by default; a card that is not there raises) and
-    casts its parameters to ``compute_dtype``.  ``int8_pointwise`` and
-    ``int8_scales`` (``{member: {site: amax}}``) opt the members into int8
-    pointwise convs (:func:`core.module.set_int8`): NOT mask-parity.
+    casts its parameters to ``compute_dtype``; below f32 it first folds the
+    BatchNorms fed by a convolution into it, in place (:mod:`nn.fold`).
+    ``int8_pointwise`` and ``int8_scales`` (``{member: {site: amax}}``) opt
+    the members into int8 pointwise convs (:func:`core.module.set_int8`):
+    NOT mask-parity.
 
     ``mesh`` (a mesh of local devices, :func:`parallel.mesh.make_mesh`)
     shards every chunk of tiles over its data axis (:func:`shard_forward`):
@@ -215,8 +226,10 @@ class FusedEnsemblePredictor:
     and ``fused.h2d`` (the upload stream's copy), resolved when the group is
     fetched; and counters ``fused.dispatches``, ``fused.chunks``,
     ``fused.tiles`` (tiles forwarded), ``fused.tile_slots`` (``batch_tiles``
-    a chunk) and ``fused.scenes``.  Over a mesh the device spans time the
-    home device only.
+    a chunk), ``fused.bn_folded`` and ``fused.bn_eager`` (the BN sites a
+    chunk's member forwards run folded and as BatchNorm) and
+    ``fused.scenes``.  Over a mesh the device spans time the home device
+    only.
     """
 
     # Scene-group sizes: quantizing bounds the shapes a serving batcher
@@ -239,7 +252,13 @@ class FusedEnsemblePredictor:
         self.device = self.devices[0]
         self._over_processes = mesh if mesh is not None and mesh.world_size > 1 else None
         self.names = list(members)
-        self.models = {n: cast_params(m.to(self.device).eval(), compute_dtype) for n, m in members.items()}
+        fold = torch.finfo(compute_dtype).bits < 32
+        self.models = {}
+        for n, m in members.items():
+            m = m.to(self.device).eval()
+            self.models[n] = cast_params(fold_batchnorm(m) if fold else m, compute_dtype)
+        sites = [bn_sites(m) for m in self.models.values()]  # a chunk's BN sites, summed over the members
+        self._bn_folded, self._bn_eager = sum(f for f, _ in sites), sum(e for _, e in sites)
         self.replicas = {d: {} for d in dict.fromkeys(self.devices)}
         for n, m in self.models.items():
             for d, replica in replicate_model(m, self.devices).items():
@@ -319,6 +338,8 @@ class FusedEnsemblePredictor:
             profiling.count("fused.chunks")
             profiling.count("fused.tiles", tiles.shape[0])
             profiling.count("fused.tile_slots", self.batch_tiles)
+            profiling.count("fused.bn_folded", self._bn_folded)
+            profiling.count("fused.bn_eager", self._bn_eager)
             with profiling.device_span("fused.forward", self.device):
                 packed = self.sharded_bits(tiles)
             # per-bit OR over overlapping tiles == the reference's

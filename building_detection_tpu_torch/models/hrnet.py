@@ -18,6 +18,8 @@ from building_detection_tpu_torch.nn import layers as L
 
 
 class _CBR(nn.Module):
+    FOLDS = (("conv", "bn"),)  # nn/fold.py: the conv's output feeds the BN alone
+
     def __init__(self, namer: Namer, in_ch: int, filters: int, kernel: int = 3, strides: int = 1, activate: bool = True):
         super().__init__()
         self.conv = L.Conv2d(namer, in_ch, filters, kernel, strides=strides)

@@ -22,6 +22,8 @@ F_SIZE = 64
 
 
 class _BNConv(nn.Module):
+    FOLDS = (("conv", "bn"),)  # nn/fold.py: the conv's output feeds the BN alone
+
     def __init__(self, namer: Namer, in_ch: int, features: int, kernel: int, name: str):
         super().__init__()
         self.conv = L.Conv2d(namer, in_ch, features, kernel, kernel_init=L.he_normal, name=name)

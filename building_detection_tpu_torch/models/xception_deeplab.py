@@ -21,6 +21,8 @@ from building_detection_tpu_torch.nn.attention import BAMAttention, SCSEBlock, S
 
 
 class _CBR(nn.Module):
+    FOLDS = (("conv", "bn"),)  # nn/fold.py: the conv's output feeds the BN alone
+
     def __init__(self, namer: Namer, in_ch: int, filters: int, kernel: int, strides: int = 1,
                  activate: bool = True, dilation: int = 1):
         super().__init__()
@@ -35,6 +37,8 @@ class _CBR(nn.Module):
 
 class _SepBN(nn.Module):
     """SeparableConv2D(3x3) + BN, with the ReLU in front when ``pre_relu``."""
+
+    FOLDS = (("conv", "bn"),)  # nn/fold.py: the pointwise output feeds the BN alone
 
     def __init__(self, namer: Namer, in_ch: int, filters: int, strides: int = 1, pre_relu: bool = True):
         super().__init__()

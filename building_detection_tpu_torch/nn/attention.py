@@ -86,6 +86,8 @@ class BAMChannelGate(nn.Module):
 class BAMSpatialGate(nn.Module):
     """1x1 C/16 -> two 3x3 dilated (d=4) -> 1x1 to one channel: (B,H,W,1)."""
 
+    FOLDS = (("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3"))  # nn/fold.py
+
     def __init__(self, namer: Namer, ch: int, rate: int = 16, d: int = 4):
         super().__init__()
         mid = ch // rate
@@ -119,6 +121,8 @@ class BAMAttention(nn.Module):
 
 
 class _ConvBNReLU(nn.Module):
+    FOLDS = (("conv", "bn"),)  # nn/fold.py: the conv's output feeds the BN alone
+
     def __init__(self, namer: Namer, in_ch: int, features: int, kernel: int, dilation: int = 1):
         super().__init__()
         self.conv = L.Conv2d(namer, in_ch, features, kernel, dilation=dilation)

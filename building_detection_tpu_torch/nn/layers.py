@@ -445,6 +445,13 @@ class BatchNorm(KerasLayer):
     (:func:`parallel.collectives.global_moments`), and ``n`` of the Bessel
     factor is the global count.  Under TP each shard normalises its slice
     of the channels with its slice of the statistics.
+
+    For serving below f32 the fused predictor folds each eval-mode BN that
+    takes a convolution's output into that convolution's kernel and bias
+    (:func:`nn.fold.fold_batchnorm`), so such a BN does not run at all.  An
+    f32 model, and every model in training, runs it here: folding reorders
+    the roundings, and the f32 parity tests hold this layer to the JAX
+    package's.
     """
 
     TP_GROUPS = {"gamma": (("gamma", "beta", "moving_mean", "moving_variance"), True)}

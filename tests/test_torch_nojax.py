@@ -178,7 +178,7 @@ SCRIPT = textwrap.dedent(
     from building_detection_tpu_torch.train.checkpoint import export_h5_weights, import_h5_weights
 
     with tempfile.TemporaryDirectory() as d:
-        params, state = jax_variables(Tiny())
+        params, state = jax_variables(init_layers(Tiny(), torch.Generator().manual_seed(6)))  # not torch.empty's bits
         zeros = [{k: np.zeros_like(v) for k, v in x.items()} for x in (params, state)]
         export_h5_weights(os.path.join(d, "tiny.h5"), params, state)
         got_p, got_s, report = import_h5_weights(os.path.join(d, "tiny.h5"), *zeros)

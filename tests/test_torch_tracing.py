@@ -9,7 +9,8 @@ predictor and the trainer record them.
 * ``device_trace`` writes the registry's summary beside the trace.
 * A tiny CPU ``FusedEnsemblePredictor`` over 16 scenes of a 9-tile plan at
   ``batch_tiles`` 32 counts 6 dispatches and chunks, 144 tiles and 192
-  slots; a tiny CPU ``train_epoch_staged`` records each ``train.*`` host
+  slots, and each chunk's folded and eager BN sites (folded only below
+  f32); a tiny CPU ``train_epoch_staged`` records each ``train.*`` host
   span once a step.
 * On a card (marker ``cuda``): the device spans resolve, the members' spans
   sum to about the forward's, which is within the dispatch's, and Keras
@@ -38,6 +39,7 @@ from building_detection_tpu_torch.nn import layers as L
 from building_detection_tpu_torch.ops import tiling as T
 from building_detection_tpu_torch.train.trainer import Trainer
 from building_detection_tpu_torch.utils import profiling
+from test_torch_bn_fold import tiny_bn_members
 from test_torch_cuda import NAMES, scenes, tiny_members
 
 torch.set_num_threads(2)
@@ -158,13 +160,28 @@ def test_fused_predictor_counts_dispatches_chunks_tiles_and_slots():
     assert len(masks) == 16 and all(set(m) == set(NAMES) for m in masks)
     # 16 scenes of 9 tiles in groups of 32 // 9 = 3: 3, 3, 3, 3, 3, 1
     assert reg.counters == {"fused.dispatches": 6, "fused.chunks": 6, "fused.tiles": 144, "fused.tile_slots": 192,
-                            "fused.scenes": 16}
+                            "fused.bn_folded": 0, "fused.bn_eager": 0, "fused.scenes": 16}
     assert reg.host["fused.call"].count == 1 and reg.host["fused.stage"].count == 6
     assert reg.host["fused.unpack"].count == 6 and reg.host["fused.plan"].count == 1
     call_id = next(s[4] for s in reg.spans if s[0] == "fused.call")
     assert all(s[4] == call_id for s in reg.spans)
     assert {s[3] for s in reg.spans if s[0] != "fused.call"} == {"fused.call"}
     assert not reg.device  # the CPU has no device spans
+
+
+@pytest.mark.parametrize("dtype,folded,eager", [(torch.bfloat16, 6, 3), (torch.float32, 0, 9)], ids=["bf16", "f32"])
+def test_fused_predictor_counts_bn_sites_per_chunk(dtype, folded, eager):
+    """Three tiny BN members of two foldable BN sites and one eager each:
+    below f32 a chunk runs 6 folded and 3 eager, in f32 9 eager; nothing is
+    counted outside ``recording()``."""
+    fused = FusedEnsemblePredictor(tiny_bn_members(), CFG, 32, dtype, "cpu")
+    imgs = scenes(3, [(SCENE, SCENE)] * 16)
+    fused.predict_masks_many(imgs)
+    assert profiling.REGISTRY.empty()
+    with profiling.recording() as reg:
+        fused.predict_masks_many(imgs)
+    assert reg.counters["fused.chunks"] == 6
+    assert reg.counters["fused.bn_folded"] == 6 * folded and reg.counters["fused.bn_eager"] == 6 * eager
 
 
 def test_train_epoch_staged_records_each_step_span_once_a_step():
